@@ -9,22 +9,32 @@ JAX or of the JAX package.  Phases, each of which fails the run:
   1. device: requires torch.cuda.is_available(); prints the card's name and
      power limit (nvidia-smi).
   2. kernels: builds csrc/*.cu (one nvcc per source, in parallel) and holds
-     each kernel against its plain PyTorch version on the card — K1
-     (segment min) at 65,536 rows x 384 dims (383 at 4-bit), Q in {64,
-     1024}, every width, both metrics, with zero and invalid rows, within
-     the completeness flag's own error bound of an f64 evaluation; K2
-     (Hamming) bit for bit.
+     each kernel against its plain PyTorch version on the card, at 65,536
+     rows x 384 dims (383 at 4-bit) with zero and invalid rows: K1
+     (segment min, seg 32) at Q in {64, 1024}, every width, both metrics,
+     and K5/K6 (the same kernel at seg 16, 64, 128) at every width, within
+     the completeness flag's own error bound of an f64 evaluation; K4 (the
+     full surface) f32 and bf16 at every width and both metrics, within
+     that bound (bf16: plus half an ulp); K2 (Hamming, f32) and K3
+     (Hamming, uint8, wrapping at 256) bit for bit.
   3. main path: a 1,000,000 x 384 cosine 8-bit collection of clustered unit
-     vectors made from a seed, ingested through Collection.add_documents,
-     queried with search_many at precision high (batch 1024), exact (batch
-     8), medium (batch 64, and batch 8 below the scan crossover) and one
-     plain search(); results are held against an independent fp64 oracle on
-     the card, and both kernels' launch counters must rise.
-  4. kernels at the main path's shapes: K1 and K2 on the ingested state
-     (K1 at Q = 1024, 64 and 8; K2 at Q = 8 and 1) held against their plain
-     versions as in phase 2, then timed beside the plain versions, a
-     library call and their bounds on the H100; end-to-end ms per batch and
-     QPS.
+     vectors made from a seed, ingested through Collection.add_documents
+     with metadata {"i": n}, queried with search_many at precision high
+     (batch 1024), exact (batch 8), medium (batch 64, and batch 8 below the
+     scan crossover) and one plain search(); then radius search (high
+     batch 8 escalating past 1024 rows into the non-fused K4 branch,
+     radius_many batch 128 on K4 from its first dispatch, exact and medium
+     batch 8), filtered kNN (high batch 1024, medium batch 8, with a broad
+     and a selective filter), a filtered radius search, and the ops entry
+     points of K5/K6 (fused_scan_topk at seg 64) and K3 on the collection's
+     state.  Results are held against an independent fp64 oracle on the
+     card, and every kernel's launch counter must rise.
+  4. kernels at the main path's shapes: all six on the ingested state held
+     against their plain versions as in phase 2, then timed beside the
+     plain versions, a library call and their bounds on the H100;
+     end-to-end ms per batch and QPS; the first filter mask's build time;
+     the radius group's device transient against core/capacity.py's
+     estimate.
 
 The line before the last is {"kernels": [...]}; the last line is
 {"ok": true, "device": {...}}.
@@ -50,6 +60,7 @@ BF16_FLOPS = 989e12
 CUDA_CORE_OPS = 67e12  # 32-bit CUDA-core rate (fp32 FMA issue rate)
 
 N_ROWS, DIMS, K = 1_000_000, 384, 10
+N_CENTERS = 4096
 
 
 def log(msg: str) -> None:
@@ -117,12 +128,53 @@ def segmin_error(got, want, qn2, norms, valid, metric, dims, what):
     return float(err.max()), ratio
 
 
+def half_ulp_bf16(x):
+    """Half a bf16 unit in the last place at |x| (8 significant bits)."""
+    a = x.abs()
+    return torch.where(a > 0, torch.exp2(torch.floor(torch.log2(
+        a.clamp_min(1e-30))) - 8), torch.zeros_like(a))
+
+
+def surface_error(got, want, qn2, norms, valid, metric, dims, what,
+                  bf16: bool):
+    """K4's surface against the plain version in f64: identical +inf
+    positions, every finite error within surface_delta (bf16: plus half an
+    ulp of the value).  Returns (max |err|, max err/bound)."""
+    from syzgydb_tpu_torch.ops import scan
+
+    torch.cuda.synchronize()
+    if not torch.equal(torch.isinf(got), torch.isinf(want)):
+        raise AssertionError(f"K4 +inf positions differ: {what}")
+    bound = scan.surface_delta(qn2, norms, valid, metric=metric,
+                               dims=dims).to(torch.float64)[:, None]
+    fin = torch.isfinite(want)
+    zero = torch.zeros_like(want)
+    want = torch.where(fin, want, zero)
+    got = torch.where(fin, got.double(), zero)
+    if bf16:
+        # the larger magnitude's half ulp: the two may straddle a power of 2
+        bound = bound + half_ulp_bf16(torch.maximum(want.abs(), got.abs()))
+    err = (got - want).abs()
+    ratio = float((err / bound).max())
+    if ratio > 1.0:
+        raise AssertionError(f"K4 off its plain version by {ratio:.3g} x "
+                             f"its bound: {what}")
+    return float(err.max()), ratio
+
+
+def u8_abs_err(got, want) -> int:
+    """Largest |got - want| of two uint8 count surfaces, taken in int32."""
+    return int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+
+
 def check_kernels(dev, n: int = 65536, batches=(64, 1024)) -> dict:
     from syzgydb_tpu_torch.ops import distance as dist_ops
     from syzgydb_tpu_torch.ops import hamming_scan, scan
 
     rng = np.random.default_rng(2024)
     seg_err, seg_ratio, runs = 0.0, 0.0, 0
+    free_err, free_ratio, free_runs = 0.0, 0.0, 0
+    surf_err, surf_ratio, surf_runs = 0.0, 0.0, 0
     for bits in (4, 8, 16, 32, 64):
         d = DIMS - 1 if bits == 4 else DIMS
         db = rng.uniform(-1, 1, size=(n, d))
@@ -152,9 +204,46 @@ def check_kernels(dev, n: int = 65536, batches=(64, 1024)) -> dict:
                 seg_err = max(seg_err, err)
                 seg_ratio = max(seg_ratio, ratio)
                 runs += 1
+        # K5/K6: the segment-min kernel at the other segment lengths
+        tq = tq[:64].contiguous()
+        qn2 = tq.square().sum(-1)
+        for seg, metric in ((16, "cosine"), (64, "euclidean"),
+                            (128, "cosine")):
+            want = scan.segment_min_scan_plain(
+                tq, tc, tn, tv, bits=bits, metric=metric, seg=seg,
+                dtype=torch.float64)
+            got = scan.segment_min_scan(tq, tc, tn, tv, bits=bits,
+                                        metric=metric, seg=seg)
+            err, ratio = segmin_error(got, want, qn2, tn, tv, metric, d,
+                                      f"seg {seg} {bits}-bit {metric}")
+            free_err, free_ratio = max(free_err, err), max(free_ratio, ratio)
+            free_runs += 1
+        # K4: the full surface, f32 and bf16
+        for metric in ("euclidean", "cosine"):
+            want = scan.score_surface_plain(tq, tc, tn, tv, bits=bits,
+                                            metric=metric,
+                                            dtype=torch.float64)
+            for exact in (True, False):
+                got = scan.score_surface(tq, tc, tn, tv, bits=bits,
+                                         metric=metric, exact=exact)
+                err, ratio = surface_error(
+                    got, want, qn2, tn, tv, metric, d,
+                    f"{bits}-bit {metric} exact={exact}", not exact)
+                # max |err| is the f32 surface's: the bf16 one adds its
+                # rounding (up to 1.0 at euclidean values near 512)
+                if exact:
+                    surf_err = max(surf_err, err)
+                surf_ratio = max(surf_ratio, ratio)
+                surf_runs += 1
+            del want, got
         del tc, tn, tv
     log(f"K1: {runs} configurations within delta of f64 "
         f"(max |err| {seg_err:.3g}, max err/delta {seg_ratio:.3g})")
+    log(f"K5/K6 (seg 16/64/128): {free_runs} configurations within delta "
+        f"of f64 (max |err| {free_err:.3g}, max err/delta "
+        f"{free_ratio:.3g})")
+    log(f"K4: {surf_runs} configurations within their bound of f64 (f32 "
+        f"max |err| {surf_err:.3g}, max err/bound {surf_ratio:.3g})")
 
     ham_err = 0.0
     for w, q in ((5, 1), (5, 64), (7, 1024)):
@@ -172,7 +261,26 @@ def check_kernels(dev, n: int = 65536, batches=(64, 1024)) -> dict:
                                  f"(W={w}, Q={q})")
         ham_err = max(ham_err, float((got - want).abs().max()))
     log("K2: bit-exact against its plain version")
-    return {"segmin": seg_err, "hamming": ham_err}
+
+    u8_err = 0
+    for w, q in ((5, 64), (8, 64)):
+        qc = rng.integers(0, 2**32, size=(q, w), dtype=np.uint32)
+        h = rng.integers(0, 2**32, size=(n, w), dtype=np.uint32)
+        h[:q] = ~qc  # 32 * W: wraps to 0 at W = 8
+        tqc = torch.from_numpy(qc.view(np.int32)).to(dev)
+        th = torch.from_numpy(h.view(np.int32)).to(dev)
+        got = hamming_scan.hamming_scores_u8(tqc, th)
+        want = hamming_scan.hamming_scores_u8_plain(tqc, th)
+        u8_err = max(u8_err, u8_abs_err(got, want))
+        if not torch.equal(got, want):
+            raise AssertionError(f"K3 differs from its plain version "
+                                 f"(W={w}, Q={q})")
+        if int(got[0, 0]) != (32 * w) % 256:
+            raise AssertionError(f"K3 count at W={w} does not wrap as the "
+                                 f"TPU kernel's uint8 cast")
+    log("K3: bit-exact against its plain version (the W=8 wrap included)")
+    return {"segmin": seg_err, "hamming": ham_err, "free_seg": free_err,
+            "surface": surf_err, "hamming_u8": float(u8_err)}
 
 
 # ---------------------------------------------------------------------------
@@ -183,9 +291,9 @@ def make_corpus(seed: int = 12345):
     """Clustered unit vectors (4096 centres, spread 0.35) and noisy queries
     near stored rows — the shape of text-embedding corpora."""
     rng = np.random.default_rng(seed)
-    centers = rng.standard_normal((4096, DIMS), dtype=np.float32)
+    centers = rng.standard_normal((N_CENTERS, DIMS), dtype=np.float32)
     centers /= np.linalg.norm(centers, axis=1, keepdims=True)
-    assign = rng.integers(0, 4096, size=N_ROWS)
+    assign = rng.integers(0, N_CENTERS, size=N_ROWS)
     db = rng.standard_normal((N_ROWS, DIMS), dtype=np.float32)
     db /= np.linalg.norm(db, axis=1, keepdims=True)
     db *= 0.35
@@ -200,19 +308,59 @@ def make_corpus(seed: int = 12345):
     return db, queries
 
 
-def oracle_top10(coll, queries: np.ndarray, dev) -> list[set]:
-    """Independent fp64 top-10 on the card: dequantize the stored 8-bit
-    codes with the reference formula (code/255)*2-1 and rank by angle."""
-    codes = torch.from_numpy(coll.columns.codes[:coll.columns.size]).to(dev)
+def oracle_vectors(coll, dev):
+    """The stored rows dequantized in fp64 on the card with the reference
+    formula (code/255)*2-1 and normalized, their validity, and their ids."""
+    size = coll.columns.size
+    codes = torch.from_numpy(coll.columns.codes[:size]).to(dev)
     v = ((codes.to(torch.float64) + 128.0) / 255.0) * 2.0 - 1.0
     v = v / v.norm(dim=1, keepdim=True)
-    valid = torch.from_numpy(coll.columns.valid[:coll.columns.size]).to(dev)
-    q = torch.from_numpy(queries).to(dev, torch.float64)
+    valid = torch.from_numpy(coll.columns.valid[:size]).to(dev)
+    ids = torch.from_numpy(coll.columns.ids[:size].astype(np.int64)).to(dev)
+    return v, valid, ids
+
+
+def oracle_dists(oracle, queries: np.ndarray, keep=None):
+    """(Q, N) fp64 angular distances acos(cos)/pi of the queries to every
+    stored row, +inf off the validity column (and off the row mask
+    `keep`)."""
+    v, valid, _ = oracle
+    q = torch.from_numpy(queries).to(v.device, torch.float64)
     cos = (q / q.norm(dim=1, keepdim=True)) @ v.T
-    cos = torch.where(valid[None, :], cos, torch.full_like(cos, -2.0))
-    rows = torch.topk(cos, K, dim=1).indices.cpu().numpy()
-    ids = coll.columns.ids
-    return [{int(ids[r]) for r in row} for row in rows]
+    d = torch.acos(cos.clamp_(-1.0, 1.0)).div_(np.pi)
+    ok = valid if keep is None else valid & keep
+    return d.masked_fill_(~ok[None, :], np.inf)
+
+
+def oracle_top10(oracle, queries: np.ndarray, keep=None) -> list[set]:
+    """Independent fp64 top-10 ids on the card, 128 queries at a time."""
+    ids = oracle[2]
+    out = []
+    for a in range(0, len(queries), 128):
+        d = oracle_dists(oracle, queries[a:a + 128], keep)
+        rows = torch.topk(d, K, dim=1, largest=False).indices
+        out += [set(r) for r in ids[rows].cpu().tolist()]
+        del d
+    return out
+
+
+def oracle_radius(oracle, queries: np.ndarray, target: int, keep=None):
+    """Per query, a radius between the oracle's r-th and (r+1)-th
+    distances, r from `target` up until that gap is at least 1e-5, so no
+    row lies within f32 error of the boundary; -> (radii, id sets)."""
+    ids = oracle[2]
+    d = oracle_dists(oracle, queries, keep)
+    s, order = torch.sort(d, dim=1)
+    head = s[:, :target + 4096].cpu().numpy()
+    radii, sets = [], []
+    for i in range(len(queries)):
+        r = target
+        while head[i, r] - head[i, r - 1] < 1e-5:
+            r += 1
+        radii.append(float((head[i, r - 1] + head[i, r]) / 2.0))
+        sets.append(set(ids[order[i, :r]].cpu().tolist()))
+    del d, s, order
+    return radii, sets
 
 
 def recall(results, truth) -> float:
@@ -220,8 +368,15 @@ def recall(results, truth) -> float:
                           for res, t in zip(results, truth)]))
 
 
+def set_recall(results, truth) -> float:
+    """Mean share of each query's true id set that came back."""
+    return float(np.mean([len({r.id for r in res.results} & t) / len(t)
+                          for res, t in zip(results, truth)]))
+
+
 def main_path(dev, report: dict):
     import syzgydb_tpu_torch as tdb
+    from syzgydb_tpu_torch.core import capacity
     from syzgydb_tpu_torch.ops import hamming_scan, scan
 
     t0 = time.perf_counter()
@@ -242,23 +397,35 @@ def main_path(dev, report: dict):
     log(f"ingested {N_ROWS} rows in {report['ingest_s']:.1f} s "
         f"(capacity {coll.columns.capacity})")
 
-    scan.launches = 0
-    hamming_scan.launches = 0
+    # every kernel's count starts at 0 here and is read after the last
+    # phase; the oracle between phases launches none of them
+    scan.launches = scan.free_seg_launches = scan.surface_launches = 0
+    hamming_scan.launches = hamming_scan.u8_launches = 0
     counts = {}
 
+    def counters():
+        return {"segmin": scan.launches, "hamming": hamming_scan.launches,
+                "hamming_u8": hamming_scan.u8_launches,
+                "surface": scan.surface_launches,
+                "segmin_free_seg": scan.free_seg_launches}
+
     def phase(name, fn):
-        s0, h0 = scan.launches, hamming_scan.launches
+        c0 = counters()
         t = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
-        counts[name] = {"ms": (time.perf_counter() - t) * 1000.0,
-                        "segmin_launches": scan.launches - s0,
-                        "hamming_launches": hamming_scan.launches - h0}
+        c1 = counters()
+        counts[name] = {"ms": (time.perf_counter() - t) * 1000.0}
+        counts[name].update({f"{k}_launches": c1[k] - c0[k] for k in c1})
         return out
 
-    def args(qs, precision):
-        return [tdb.SearchArgs(vector=q, k=K, precision=precision)
+    def args(qs, precision, **kw):
+        return [tdb.SearchArgs(vector=q, k=K, precision=precision, **kw)
                 for q in qs]
+
+    def rargs(qs, radii, precision, **kw):
+        return [tdb.SearchArgs(vector=q, radius=r, precision=precision, **kw)
+                for q, r in zip(qs, radii)]
 
     q64 = queries[:64]
     high = phase("high_first_batch1024",
@@ -274,14 +441,105 @@ def main_path(dev, report: dict):
     single = phase("search_single",
                    lambda: coll.search(tdb.SearchArgs(vector=queries[0],
                                                       k=K)))
-    launches = {"segmin": scan.launches, "hamming": hamming_scan.launches}
+
+    # radius search: radii from the fp64 oracle
+    oracle = oracle_vectors(coll, dev)
+    rq = {"high": queries[128:136], "many": queries[:128],
+          "exact": queries[136:144], "medium": queries[144:152],
+          "filtered": queries[152:160]}
+    # a broad filter (half the rows) and a selective one (the last 1000)
+    half = N_ROWS // 2
+    broad, narrow = f"i < {half}", f"i >= {N_ROWS - 1000}"
+    lo_ids = torch.from_numpy(coll.columns.ids[:coll.columns.size]
+                              < half).to(dev)
+    radius_plan = {"high": oracle_radius(oracle, rq["high"], 2000),
+                   "many": oracle_radius(oracle, rq["many"], 50),
+                   "exact": oracle_radius(oracle, rq["exact"], 100),
+                   "medium": oracle_radius(oracle, rq["medium"], 20),
+                   "filtered": oracle_radius(oracle, rq["filtered"], 100,
+                                             keep=lo_ids)}
+    rad = {}
+    rad["high"] = phase("radius_high_batch8", lambda: coll.radius_many(
+        rargs(rq["high"], radius_plan["high"][0], "high")))
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    rad["many"] = phase("radius_many_batch128", lambda: coll.radius_many(
+        rargs(rq["many"], radius_plan["many"][0], "high")))
+    transient = torch.cuda.max_memory_allocated() - base
+    rad["exact"] = phase("radius_exact_batch8", lambda: coll.radius_many(
+        rargs(rq["exact"], radius_plan["exact"][0], "exact")))
+    rad["medium"] = phase("radius_medium_batch8", lambda: coll.radius_many(
+        rargs(rq["medium"], radius_plan["medium"][0], "medium")))
+
+    # query-string filters
+    t = time.perf_counter()
+    _, n_broad = coll._filter_mask(tdb.SearchArgs(filter_query=broad))
+    report["first_filter_mask_ms"] = (time.perf_counter() - t) * 1000.0
+    flt = {}
+    flt["high_broad"] = phase("filter_high_batch1024_broad", lambda:
+                              coll.search_many(args(queries, "high",
+                                                    filter_query=broad)))
+    flt["high_narrow"] = phase("filter_high_batch1024_narrow", lambda:
+                               coll.search_many(args(queries, "high",
+                                                     filter_query=narrow)))
+    flt["medium_broad"] = phase("filter_medium_batch8_broad", lambda:
+                                coll.search_many(args(q64[:8], "medium",
+                                                      filter_query=broad)))
+    flt["medium_narrow"] = phase("filter_medium_batch8_narrow", lambda:
+                                 coll.search_many(args(q64[:8], "medium",
+                                                       filter_query=narrow)))
+    rad["filtered"] = phase("filter_radius_high_batch8", lambda:
+                            coll.radius_many(rargs(
+                                rq["filtered"], radius_plan["filtered"][0],
+                                "high", filter_query=broad)))
+
+    # the ops entry points of K5/K6 and K3 on the collection's state
+    state = coll._device_state()
+    tq = torch.from_numpy(queries).to(dev)
+    ops = {}
+
+    def seg64_proven():
+        margin = None
+        while True:
+            d, r, ok = scan.fused_scan_topk(
+                tq, state["codes"], state["norms"], state["valid"], bits=8,
+                metric="cosine", k=K, seg=64, tie_margin=margin,
+                with_ties=True)
+            if bool(ok.all()):
+                return r, margin
+            margin = coll._escalate_margin(margin)
+
+    ops["seg64"] = phase("ops_fused_scan_seg64_batch1024", seg64_proven)
+    qcode64 = torch.from_numpy(coll.index.encode_np(q64).view(
+        np.int32)).to(dev)
+    ops["u8"] = phase("ops_hamming_u8_batch64", lambda: (
+        hamming_scan.hamming_scores_u8(qcode64, state["hashes"]),
+        hamming_scan.hamming_scores(qcode64, state["hashes"],
+                                    torch.ones_like(state["valid"]))))
+
+    launches = counters()
     report["phases"] = counts
     log(f"main-path launches: {launches}; per phase: {counts}")
-    if launches["segmin"] == 0 or launches["hamming"] == 0:
+    if min(launches.values()) == 0:
         raise AssertionError(f"a kernel was not launched on the main path: "
                              f"{launches}")
+    k4 = sum(counts[n]["surface_launches"] for n in (
+        "radius_high_batch8", "radius_many_batch128"))
+    if k4 == 0 or counts["radius_many_batch128"]["surface_launches"] == 0:
+        raise AssertionError("the radius phases did not reach the non-fused "
+                             "K4 branch")
 
-    truth = oracle_top10(coll, q64, dev)
+    est = capacity.search_transient(coll.columns.capacity)
+    report["radius_many_transient"] = {"measured_bytes": transient,
+                                       "estimate_bytes": est["peak"]}
+    log(f"radius_many batch 128 device transient: {transient} bytes "
+        f"(estimate {est['peak']})")
+    if transient > est["peak"]:
+        raise AssertionError("the radius group's device transient exceeds "
+                             "core/capacity.py's estimate")
+
+    truth = oracle_top10(oracle, q64)
     rec = {"high": recall(high[:64], truth), "exact": recall(exact, truth),
            "medium_batch64": recall(med64, truth),
            "medium_batch8": recall(med8, truth),
@@ -298,11 +556,25 @@ def main_path(dev, report: dict):
     if min(rec["medium_batch64"], rec["medium_batch8"]) < 0.99:
         raise AssertionError(f"medium recall below 0.99: {rec}")
 
+    check_radius_and_filters(coll, oracle, queries, rad, radius_plan, flt,
+                             n_broad, report)
+    del oracle
+
+    # the ops phases: the seg-64 scan's proven rows are high's, and K3's
+    # uint8 counts are K2's (W = 5: no count reaches 256)
+    ids = coll.columns.ids
+    want = [[x.id for x in res.results] for res in high]
+    r64, m64 = ops["seg64"]
+    if [[int(ids[x]) for x in row] for row in r64.cpu().numpy()] != want:
+        raise AssertionError("seg-64 proven rows differ from high's results")
+    u8, f32 = ops["u8"]
+    if not torch.equal(u8.to(torch.float32), f32):
+        raise AssertionError("K3's counts differ from K2's on the main state")
+    report["ops"] = {"seg64_proven_margin": m64 or scan.default_tie_margin()}
+
     # the completeness flags at the margin the collection settled on, and
     # up the escalation ladder until every flag is 1 (the loop Collection
     # runs); the proven rows must be the rows high returned
-    state = coll._device_state()
-    tq = torch.from_numpy(queries).to(dev)
     _, _, ok6 = scan.fused_scan_topk(
         tq, state["codes"], state["norms"], state["valid"], bits=8,
         metric="cosine", k=K, with_ties=True)
@@ -317,9 +589,7 @@ def main_path(dev, report: dict):
         if frac == 1.0:
             break
         margin = coll._escalate_margin(margin)
-    ids = coll.columns.ids
     got = [[int(ids[x]) for x in row] for row in r.cpu().numpy()]
-    want = [[x.id for x in res.results] for res in high]
     if got != want:
         raise AssertionError("proven rows differ from high's results")
     report["flags"] = {"default_margin_ok_frac": float(ok6.float().mean()),
@@ -341,34 +611,110 @@ def main_path(dev, report: dict):
             ("medium_batch8", lambda: coll.search_many(
                 args(q64[:8], "medium")), 8, 10),
             ("search_single", lambda: coll.search(
-                tdb.SearchArgs(vector=queries[1], k=K)), 1, 20)):
+                tdb.SearchArgs(vector=queries[1], k=K)), 1, 20),
+            ("radius_high_batch8", lambda: coll.radius_many(rargs(
+                rq["high"], radius_plan["high"][0], "high")), 8, 5),
+            ("radius_many_batch128", lambda: coll.radius_many(rargs(
+                rq["many"], radius_plan["many"][0], "high")), 128, 5),
+            ("radius_exact_batch8", lambda: coll.radius_many(rargs(
+                rq["exact"], radius_plan["exact"][0], "exact")), 8, 5),
+            ("radius_medium_batch8", lambda: coll.radius_many(rargs(
+                rq["medium"], radius_plan["medium"][0], "medium")), 8, 10),
+            ("filter_high_batch1024_broad", lambda: coll.search_many(
+                args(queries, "high", filter_query=broad)), 1024, 5),
+            ("filter_high_batch1024_narrow", lambda: coll.search_many(
+                args(queries, "high", filter_query=narrow)), 1024, 5),
+            ("filter_medium_batch8_broad", lambda: coll.search_many(
+                args(q64[:8], "medium", filter_query=broad)), 8, 10),
+            ("filter_radius_high_batch8", lambda: coll.radius_many(rargs(
+                rq["filtered"], radius_plan["filtered"][0], "high",
+                filter_query=broad)), 8, 5)):
         ms = statistics.median(wall_ms(fn, reps))
         e2e[name] = {"ms_per_batch": ms, "qps": nq / ms * 1000.0}
     report["e2e"] = e2e
     log(f"end to end: {e2e}")
-    report["profile"] = profile_batches(coll, queries)
+    report["profile"] = profile_batches(coll, [
+        ("high_batch1024", lambda: coll.search_many(args(queries, "high"))),
+        ("exact_batch8", lambda: coll.search_many(args(q64[:8], "exact"))),
+        ("medium_batch8", lambda: coll.search_many(args(q64[:8],
+                                                        "medium"))),
+        ("radius_many_batch128", lambda: coll.radius_many(rargs(
+            rq["many"], radius_plan["many"][0], "high"))),
+        ("radius_high_batch8", lambda: coll.radius_many(rargs(
+            rq["high"], radius_plan["high"][0], "high"))),
+        ("radius_exact_batch8", lambda: coll.radius_many(rargs(
+            rq["exact"], radius_plan["exact"][0], "exact")))])
     return coll, tmp, state, tq, launches
 
 
-def profile_batches(coll, queries) -> dict:
+def check_radius_and_filters(coll, oracle, queries, rad, radius_plan, flt,
+                             n_broad, report) -> None:
+    """Radius id sets against the fp64 oracle (high and exact equal, medium
+    recall >= 0.99); filtered results inside their filter and equal to the
+    oracle's filtered top-10 (medium: recall >= 0.99)."""
+    rrec = {}
+    for name in ("high", "many", "exact", "medium", "filtered"):
+        radii, truth = radius_plan[name]
+        res = rad[name]
+        if any(r.distance > radius for x, radius in zip(res, radii)
+               for r in x.results):
+            raise AssertionError(f"radius {name}: a result past its radius")
+        rrec[name] = set_recall(res, truth)
+        exact_sets = all({r.id for r in x.results} == t
+                         for x, t in zip(res, truth))
+        report.setdefault("radius_sizes", {})[name] = \
+            [len(t) for t in truth]
+        if name != "medium" and not exact_sets:
+            raise AssertionError(f"radius {name}: id sets differ from the "
+                                 f"fp64 oracle's (recall {rrec[name]})")
+    report["radius_set_recall"] = rrec
+    log(f"radius id-set recall vs fp64 oracle: {rrec}")
+    if rrec["medium"] < 0.99:
+        raise AssertionError(f"medium radius recall below 0.99: {rrec}")
+    half, last = N_ROWS // 2, N_ROWS - 1000
+    if any(r.id >= half for x in rad["filtered"] for r in x.results):
+        raise AssertionError("filtered radius returned a row outside the "
+                             "filter")
+
+    size = coll.columns.size
+    ids_np = coll.columns.ids[:size]
+    keeps = {"broad": (ids_np < half, lambda i: i < half),
+             "narrow": (ids_np >= last, lambda i: i >= last)}
+    frec = {}
+    for name, res in flt.items():
+        kind = name.split("_")[1]
+        mask, inside = keeps[kind]
+        if not all(inside(r.id) for x in res for r in x.results):
+            raise AssertionError(f"filter {name}: a result outside the "
+                                 f"filter")
+        nq = len(res)
+        truth = oracle_top10(oracle, queries[:nq],
+                             torch.from_numpy(mask).to(oracle[0].device))
+        frec[name] = recall(res, truth)
+        if name.startswith("high") and frec[name] < 1.0:
+            raise AssertionError(f"filter {name}: top-10 differs from the "
+                                 f"fp64 oracle's ({frec[name]})")
+    report["filter_recall_at_10"] = frec
+    report["filter_passing"] = {"broad": n_broad}
+    log(f"filtered recall@10 vs fp64 oracle: {frec}")
+    if min(frec.values()) < 0.99:
+        raise AssertionError(f"filtered recall below 0.99: {frec}")
+
+
+def profile_batches(coll, batches) -> dict:
     """Device time by kernel for one warm batch of each kind, from
     torch.profiler (CUPTI), beside the batch's wall time; the busy share is
     the summed kernel time over the wall time (profiler on)."""
-    import syzgydb_tpu_torch as tdb
     from torch.profiler import ProfilerActivity, profile
 
     out = {}
-    for name, nq, precision in (("high_batch1024", 1024, "high"),
-                                ("exact_batch8", 8, "exact"),
-                                ("medium_batch8", 8, "medium")):
-        batch = [tdb.SearchArgs(vector=q, k=K, precision=precision)
-                 for q in queries[:nq]]
-        coll.search_many(batch)
+    for name, fn in batches:
+        fn()
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            coll.search_many(batch)
+            fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1000.0
         kern = {}
@@ -395,10 +741,18 @@ def profile_batches(coll, queries) -> dict:
 # phase 4: kernel times at the main path's shapes
 # ---------------------------------------------------------------------------
 
+def bound(ops: float, nbytes: float, rate: float = BF16_FLOPS) -> dict:
+    """The least time the card could take: the larger of the operations
+    over `rate` and the bytes over the memory rate."""
+    t_ops, t_bytes = ops / rate, nbytes / HBM_BYTES_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+
+
 def kernel_times(coll, state, tq, dev) -> dict:
-    """K1 and K2 on the ingested state at the main path's query counts:
-    each held against its plain version (K1 within the flag's bound of an
-    f64 evaluation, K2 bit for bit), then timed."""
+    """All six kernels on the ingested state at the main path's query
+    counts: each held against its plain version (K1/K4/K5/K6 within the
+    flag's bound of an f64 evaluation, K2/K3 bit for bit), then timed."""
     from syzgydb_tpu_torch.ops import hamming_scan, scan
 
     codes, norms, valid = state["codes"], state["norms"], state["valid"]
@@ -464,6 +818,83 @@ def kernel_times(coll, state, tq, dev) -> dict:
     out["hamming_q8"]["plain_ms"] = cuda_ms(
         lambda: hamming_scan.hamming_scores_plain(qcode, hashes, valid),
         reps=5)
+
+    # K3: uint8 surface at Q = 64, W = 5 (no count reaches 256)
+    qc64 = torch.from_numpy(coll.index.encode_np(
+        tq[:64].cpu().numpy()).view(np.int32)).to(dev)
+    got = hamming_scan.hamming_scores_u8(qc64, hashes)
+    want = hamming_scan.hamming_scores_u8_plain(qc64, hashes)
+    out["hamming_u8_max_abs_err"] = u8_abs_err(got, want)
+    if not torch.equal(got, want):
+        raise AssertionError("K3 differs from its plain version on the main "
+                             "path's state (Q=64)")
+    del got, want
+    q = 64
+    out["hamming_u8_q64"] = {
+        "ms": cuda_ms(lambda: hamming_scan.hamming_scores_u8(qc64, hashes),
+                      reps=20),
+        "plain_ms": cuda_ms(lambda: hamming_scan.hamming_scores_u8_plain(
+            qc64, hashes), reps=3),
+        **bound(2.0 * q * n * w, 4 * n * w + 4 * q * w + q * n,
+                CUDA_CORE_OPS)}
+    log("K3 at the main path's shapes: bit-exact against its plain version")
+
+    # K4: the exact f32 surface at Q = 128 (the radius group's chunk), and
+    # its bf16 form
+    q = 128
+    qq = tq[:q].contiguous()
+    qn2 = qq.square().sum(-1)
+    want = scan.score_surface_plain(qq, codes, norms, valid, bits=8,
+                                    metric="cosine", dtype=torch.float64)
+    out["surface_max_abs_err"] = 0.0
+    for exact in (True, False):
+        got = scan.score_surface(qq, codes, norms, valid, bits=8,
+                                 metric="cosine", exact=exact)
+        err, ratio = surface_error(got, want, qn2, norms, valid, "cosine", d,
+                                   f"main path Q={q} exact={exact}",
+                                   not exact)
+        if exact:
+            out["surface_max_abs_err"] = err
+        del got
+    del want
+    log(f"K4 at the main path's shapes: within its bound of f64 (max |err| "
+        f"{out['surface_max_abs_err']:.3g})")
+    qb = qq.to(torch.bfloat16)
+    cb = codes.to(torch.bfloat16)
+    out["surface_q128"] = {
+        "ms": cuda_ms(lambda: scan.score_surface(
+            qq, codes, norms, valid, bits=8, metric="cosine", exact=True),
+            reps=5),
+        "plain_ms": cuda_ms(lambda: scan.score_surface_plain(
+            qq, codes, norms, valid, bits=8, metric="cosine", exact=True),
+            reps=3),
+        "library_ms": cuda_ms(lambda: qb @ cb.T, reps=5),
+        **bound(2.0 * q * n * d, n * d + 5 * n + 4 * q * d + 4 * q * n)}
+
+    # K5/K6: the segment-min kernel at seg 64, Q = 1024
+    q, seg = 1024, 64
+    qn2 = tq.square().sum(-1)
+    got = scan.segment_min_scan(tq, codes, norms, valid, bits=8,
+                                metric="cosine", seg=seg)
+    want = scan.segment_min_scan_plain(tq, codes, norms, valid, bits=8,
+                                       metric="cosine", seg=seg,
+                                       dtype=torch.float64)
+    out["segmin_seg64_max_abs_err"], _ = segmin_error(
+        got, want, qn2, norms, valid, "cosine", d, f"main path seg {seg}")
+    del got, want
+    qb = tq.to(torch.bfloat16)
+    out["segmin_seg64_q1024"] = {
+        "ms": cuda_ms(lambda: scan.segment_min_scan(
+            tq, codes, norms, valid, bits=8, metric="cosine", seg=seg),
+            reps=5),
+        "plain_ms": cuda_ms(lambda: scan.segment_min_scan_plain(
+            tq, codes, norms, valid, bits=8, metric="cosine", seg=seg),
+            reps=3),
+        "library_ms": cuda_ms(lambda: qb @ cb.T, reps=5),
+        **bound(2.0 * q * n * d,
+                n * d + 5 * n + 4 * q * d + 4 * q * (n // seg))}
+    del cb
+    log("K5/K6 at the main path's shapes: within delta of f64")
     return out
 
 
@@ -473,6 +904,7 @@ def main() -> int:
             "needs an NVIDIA GPU")
         return 2
     t_start = time.perf_counter()
+    from syzgydb_tpu_torch import native
     from syzgydb_tpu_torch.ops import cuda_build
 
     dev = torch.device("cuda")
@@ -484,6 +916,9 @@ def main() -> int:
     t0 = time.perf_counter()
     for name, ptxas in cuda_build.build_all().items():
         log(f"--- nvcc {name}.cu ---\n{ptxas}")
+    # the JSON field projector (g++) too, so the first filter mask is
+    # timed without its build; without g++ filters parse in Python
+    report["jsonproj_native"] = native.get_jsonproj() is not None
     report["build_s"] = time.perf_counter() - t0
     log(f"kernels built in {report['build_s']:.1f} s")
 
@@ -497,6 +932,18 @@ def main() -> int:
     print(json.dumps(report), flush=True)
 
     seg, ham = times["segmin_q1024"], times["hamming_q8"]
+    ham8, surf = times["hamming_u8_q64"], times["surface_q128"]
+    free = times["segmin_seg64_q1024"]
+
+    def row(name, source, replaces, launched, err, t, library):
+        return {"name": name, "route": "cuda",
+                "source": f"syzgydb_tpu_torch/csrc/{source}",
+                "replaces": replaces, "launches": launched,
+                "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                "library_ms": library}
+
+    free_err = max(errs["free_seg"], times["segmin_seg64_max_abs_err"])
     kernels = [
         {"name": "segmin", "route": "cuda",
          "source": "syzgydb_tpu_torch/csrc/segmin.cu",
@@ -513,6 +960,22 @@ def main() -> int:
          "ms": ham["ms"], "plain_ms": ham["plain_ms"],
          "bound_ms": ham["bound_ms"], "bound_by": ham["bound_by"],
          "library_ms": None},
+        row("hamming_u8", "hamming.cu",
+            "syzgydb_tpu/ops/pallas_hamming.py:27", launches["hamming_u8"],
+            max(errs["hamming_u8"], times["hamming_u8_max_abs_err"]), ham8,
+            None),
+        row("surface", "surface.cu", "syzgydb_tpu/ops/pallas_scan.py:272",
+            launches["surface"],
+            max(errs["surface"], times["surface_max_abs_err"]), surf,
+            surf["library_ms"]),
+        # K5 and K6 are two TPU layouts of one function: one CUDA kernel
+        # (segmin.cu at seg != 32) and one launch count serve both rows
+        row("segmin_free_seg_transposed", "segmin.cu",
+            "tools_dev/superseded_kernels.py:33",
+            launches["segmin_free_seg"], free_err, free, free["library_ms"]),
+        row("segmin_free_seg_natural", "segmin.cu",
+            "tools_dev/superseded_kernels.py:138",
+            launches["segmin_free_seg"], free_err, free, free["library_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

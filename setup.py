@@ -8,7 +8,7 @@ setup(
     packages=find_packages(exclude=("tests",)),
     package_data={"syzgydb_tpu.native": ["libspanlog_core.so"],
                   # the port builds its CUDA kernels from these at first use
-                  "syzgydb_tpu_torch": ["csrc/*.cu"]},
+                  "syzgydb_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "flax"],
     entry_points={

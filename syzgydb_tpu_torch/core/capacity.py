@@ -7,10 +7,12 @@ BEFORE an allocator runs out mid-operation.
            the live metadata estimate — checked against /proc/meminfo
            MemAvailable with a safety margin.
   device = codes + norms + valid + hashes, plus the largest search
-           transient (the rerank's gather budget and the segment-min
-           surface of a 2048-query batch) — checked against the card's
-           total memory (torch.cuda.mem_get_info) on CUDA placements and
-           skipped on the CPU, where the host check covers the columns.
+           transient (search_transient: the fused scan's gather budget and
+           the segment-min surface of a 2048-query batch, or the non-fused
+           branch's K4 surface chunks and the selection beside them) —
+           checked against the card's total memory
+           (torch.cuda.mem_get_info) on CUDA placements and skipped on the
+           CPU, where the host check covers the columns.
 
 The port has no lean placement and no derived code layouts (lane slab,
 interleaved operand), so the estimate is one codes buffer.
@@ -69,16 +71,38 @@ def device_budget(device: torch.device) -> Optional[int]:
     return int(total)
 
 
+def search_transient(capacity: int) -> dict:
+    """The largest device transient of one search dispatch at `capacity`
+    rows, by route (they never overlap, so the peak is the
+    larger):
+
+      fused:     the rerank's gather budget plus the (Q, N/32) f32
+                 segment-min surface of a _TRANSIENT_QUERIES batch;
+      non_fused: scan.surface_topk's query chunk — K4's f32 surface rows,
+                 torch.topk's working set and the selected candidates,
+                 whose codes are gathered and reranked in pieces — which
+                 stays within SURFACE_BUDGET_BYTES at any kk, unless one
+                 query selecting every row (28 + 64 bytes a row, plus its
+                 rerank piece) needs more: past ~35M rows, where the fused
+                 surface is larger still."""
+    from ..ops import scan
+    fused = scan.GATHER_BUDGET_BYTES + \
+        4 * _TRANSIENT_QUERIES * (capacity // scan.DEFAULT_SEG)
+    non_fused = max(scan.SURFACE_BUDGET_BYTES,
+                    scan.surface_query_bytes(capacity, capacity) +
+                    scan.SURFACE_BUDGET_BYTES // 4)
+    return {"fused": fused, "non_fused": non_fused,
+            "peak": max(fused, non_fused)}
+
+
 def estimate(capacity: int, code_row_bytes_host: int,
              code_row_bytes_dev: int, hash_words: int,
              meta_row_bytes: int) -> dict:
     """Byte estimates for one capacity."""
-    from ..ops.scan import DEFAULT_SEG, GATHER_BUDGET_BYTES
     fixed = code_row_bytes_host + 4 + 8 + 1 + 4 * hash_words
     host = capacity * (fixed + meta_row_bytes)
     dev = capacity * (code_row_bytes_dev + 4 + 1 + 4 * hash_words)
-    transient = GATHER_BUDGET_BYTES + \
-        4 * _TRANSIENT_QUERIES * (capacity // DEFAULT_SEG)
+    transient = search_transient(capacity)["peak"]
     return {"host_bytes": host, "device_bytes": dev,
             "device_peak": dev + transient}
 

@@ -18,6 +18,19 @@ collection files.  Search modes:
   * precision "medium"      -> sketch-prefiltered scan (kernel K2,
                                index/hamming.py) for small batches; large
                                batches ride the exhaustive scan
+  * Radius > 0              -> the same routes at a shared top-kk shape,
+                               escalating kk (or the sketch budget) x4
+                               until every query's worst returned distance
+                               clears its radius; past the fused scan's k
+                               bound the exhaustive route selects from
+                               kernel K4's full surface (ops/scan.py
+                               surface_topk)
+
+Metadata filters are callables or query strings (query/): a string is
+evaluated over columnar field projections where its shape allows
+(query/columnar.py), else by a compiled closure per row, and the mask is
+cached per (query, mutation generation).  A filtered device search uploads
+the mask as the validity column.
 
 Documents are durable in the span log (core/storage.py) and live columnar
 in numpy arrays (core/columns.py) mirroring the device layout; searches
@@ -26,9 +39,8 @@ dirty-row batches are scattered in place) and run there.
 
 The device is a constructor argument, not an option: ``Collection(options,
 device=None)`` runs on CUDA unless the caller passes ``device="cpu"``, and
-raises when CUDA is asked for and absent.  Radius search, query-string
-filters and multi-device meshes are not ported yet and raise
-NotImplementedError.
+raises when CUDA is asked for and absent.  Multi-device meshes are not
+ported yet and raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -70,12 +82,6 @@ DEFAULT_SEARCH_BUDGET = 2048
 # below this many stored elements (rows x dims) exhaustive searches run on
 # the host in f64 — kept from the JAX package so both route alike
 HOST_SCAN_MAX_ELEMS = 1 << 21
-
-_RADIUS_TODO = ("radius search is not ported yet "
-                "(ROADMAP.md Queue 1, item 1: Radius)")
-_FILTER_TODO = ("query-string filters are not ported yet "
-                "(ROADMAP.md Queue 1, item 2: Filters); pass a callable filter")
-
 
 @dataclasses.dataclass
 class CollectionOptions:
@@ -135,9 +141,9 @@ class Document:
 class SearchArgs:
     vector: Optional[Sequence[float]] = None
     filter: Optional[FilterFn] = None
-    filter_query: Optional[str] = None  # not ported yet: raises
+    filter_query: Optional[str] = None
     k: int = 0
-    radius: float = 0.0  # not ported yet: raises
+    radius: float = 0.0
     offset: int = 0
     limit: int = 0
     precision: str = ""  # "" -> "medium" (collection.go:573-575)
@@ -256,6 +262,11 @@ class Collection:
         self._seg_margin_hint: Optional[int] = None
         self._hint_fail_streak = 0
         self._sorted_ids_cache: tuple[int, list[int]] | None = None
+        # query-string filter masks keyed on the query string, each tagged
+        # with the mutation generation it was evaluated at
+        self._filter_cache: dict = {}
+        from ..query.columnar import ColumnarFilterEngine
+        self._columnar_filter = ColumnarFilterEngine()
         # device placements by kind (tests assert streaming mutations ride
         # the scatter path instead of full re-uploads)
         self.sync_stats = {"full": 0, "scatter": 0}
@@ -527,21 +538,49 @@ class Collection:
 
     # -- filters -----------------------------------------------------------
 
+    _FILTER_CACHE_SIZE = 16
+
     def _filter_mask(self, args: SearchArgs) -> tuple[np.ndarray, int]:
-        """(bool mask over capacity rows, live-passing count).  Unfiltered
-        searches use the validity column as is; a callable filter is
-        evaluated once per live row."""
-        if args.filter_query:
-            raise NotImplementedError(_FILTER_TODO)
+        """(bool mask over capacity rows, live-passing count).
+
+        Unfiltered searches use the validity column as is.  A query string
+        evaluates in two tiers: numpy mask algebra over columnar field
+        projections (query/columnar.py) where the query's shape allows,
+        else one compiled-closure pass per live row; either way the mask
+        is cached keyed on (query, mutation generation).  A callable
+        filter is evaluated once per live row."""
         flt = args.filter
-        if flt is None:
+        cache_key = None
+        if flt is None and not args.filter_query:
             return self.columns.valid, len(self.columns)
+        if flt is None:
+            cache_key = args.filter_query
+            hit = self._filter_cache.get(cache_key)
+            if hit is not None and hit[0] == self.columns.version:
+                return hit[1], hit[2]
+            vec = self._columnar_filter.evaluate(args.filter_query,
+                                                 self.columns)
+            if vec is not None:
+                valid = self.columns.valid.copy()
+                valid[: self.columns.size] &= vec
+                return self._cache_mask(cache_key, valid)
+            from .. import build_filter
+            flt = build_filter(args.filter_query)
         valid = self.columns.valid.copy()
         for row in self.columns.live_rows():
             md = self.columns.metadata[row]
             if not flt(int(self.columns.ids[row]), md if md is not None else b""):
                 valid[row] = False
+        if cache_key is not None:
+            return self._cache_mask(cache_key, valid)
         return valid, int(valid.sum())
+
+    def _cache_mask(self, cache_key: str, valid: np.ndarray):
+        count = int(valid.sum())
+        self._filter_cache[cache_key] = (self.columns.version, valid, count)
+        while len(self._filter_cache) > self._FILTER_CACHE_SIZE:
+            self._filter_cache.pop(next(iter(self._filter_cache)))
+        return valid, count
 
     # -- search ------------------------------------------------------------
 
@@ -572,9 +611,7 @@ class Collection:
         a0 = args_list[0]
         p0 = a0.precision or "medium"
         for a in args_list:
-            if a.radius != 0:
-                raise NotImplementedError(_RADIUS_TODO)
-            if (a.k != a0.k or a.k <= 0
+            if (a.k != a0.k or a.k <= 0 or a.radius != 0
                     or a.vector is None or a.filter is not None
                     or (a.precision or "medium") != p0
                     or (a.filter_query or "") != (a0.filter_query or "")):
@@ -614,8 +651,201 @@ class Collection:
 
         return finish
 
-    def radius_many(self, args_list: Sequence[SearchArgs]):
-        raise NotImplementedError(_RADIUS_TODO)
+    def radius_many(self, args_list: Sequence[SearchArgs]
+                    ) -> list[SearchResults]:
+        """Batched radius search: one shared device escalation loop answers
+        the whole group.  Searches must share precision and filter_query
+        (no callable filters) but may carry DIFFERENT radii: the group
+        dispatches at a shared top-k shape and escalates k until every
+        member's worst returned distance clears its own radius, then each
+        member keeps the rows within its radius (reference accept-reset
+        semantics, collection.go:598-604).
+
+        The device DISPATCH runs under the collection lock and the result
+        FETCH with it released (escalation re-dispatches re-acquire it and
+        re-read the device state)."""
+        if not args_list:
+            return []
+        t0 = time.perf_counter()
+        a0 = args_list[0]
+        p0 = a0.precision or "medium"
+        for a in args_list:
+            if (a.radius <= 0 or a.vector is None or a.filter is not None
+                    or (a.precision or "medium") != p0
+                    or (a.filter_query or "") != (a0.filter_query or "")):
+                raise ValueError(
+                    "radius_many requires homogeneous radius searches "
+                    "(radius > 0, same precision/filter_query, no callable "
+                    "filter)")
+        qvecs = np.stack([np.asarray(a.vector, dtype=np.float64)
+                          for a in args_list])
+        if qvecs.shape[1] != self.dimension_count:
+            raise ValueError("query vector dimension mismatch")
+        radii = np.array([float(a.radius) for a in args_list])
+        # power-of-two bucket, as search_many: pads are copies of query 0
+        # and share its radius
+        b0 = qvecs.shape[0]
+        bucket = max(8, 1 << (b0 - 1).bit_length())
+        if bucket != b0:
+            qvecs = np.concatenate(
+                [qvecs, np.repeat(qvecs[:1], bucket - b0, axis=0)])
+            radii = np.concatenate(
+                [radii, np.repeat(radii[:1], bucket - b0)])
+        with self._lock:
+            fin = self._radius_many_async(a0, qvecs, radii, n_real=b0)
+        out = fin() if callable(fin) else fin
+        dt = (time.perf_counter() - t0) * 1000.0
+        for r in out:
+            r.search_time_ms = dt
+        return out
+
+    def _radius_many_async(self, args: SearchArgs, qvecs: np.ndarray,
+                           radii: np.ndarray, n_real: int):
+        """(Q, D)-batched radius search, split into a DISPATCH phase
+        (caller holds the lock) and a finish() callable that fetches with
+        the lock RELEASED; escalation rounds re-acquire it and re-read the
+        device state and the filter mask.  Returns the first n_real
+        queries' results directly for the host path, else the finish
+        callable."""
+        n_records = len(self.columns)
+        if n_records == 0:
+            return [SearchResults([], 0.0) for _ in range(n_real)]
+        precision = args.precision or "medium"
+        mask, n_passing = self._filter_mask(args)
+
+        use_index = (precision not in ("exact", "high")
+                     and self.index.calibrated
+                     and n_records >= MIN_INDEX_SIZE)
+        if self._small() and not use_index:
+            return [self._host_scan_radius(qvecs[i], float(radii[i]), mask,
+                                           n_passing, n_records)
+                    for i in range(n_real)]
+
+        queries = self._queries(qvecs)
+        dev = self._device_state()
+        valid = self._valid(dev, args, mask)
+
+        def cur_valid(dev_now):
+            return self._valid(dev_now, args)
+
+        if use_index:
+            budget = min(max(self.options.search_budget,
+                             4 * max(args.k, 1)), self.columns.capacity)
+            qcode = torch.from_numpy(self.index.encode_np(
+                np.float32(qvecs)).view(np.int32)).to(self.device)
+            cap = min(n_passing, self.columns.capacity)
+
+            def ann_dispatch(dev_now, valid_now, b):
+                _, cand = hamming.hamming_candidates(qcode, dev_now["hashes"],
+                                                     valid_now, b)
+                return hamming.rerank_topk(
+                    queries, dev_now["codes"], dev_now["norms"], valid_now,
+                    cand, self.quantization, self.metric, b,
+                    with_counts=True)
+
+            b = budget
+            dist, rows, nsc = ann_dispatch(dev, valid, b)
+
+            def finish_ann() -> list[SearchResults]:
+                bb, d, r, c = b, dist, rows, nsc
+                while True:
+                    dist_np, rows_np, cnt = self._fetch_results(d, r, c)
+                    if bb >= cap or all(
+                            self._radius_done(dist_np[i], bb, radii[i], 0.0)
+                            for i in range(n_real)):
+                        break
+                    bb = min(bb * 4, cap)
+                    with self._lock:  # escalation re-dispatch
+                        dev2 = self._device_state()
+                        d, r, c = ann_dispatch(dev2, cur_valid(dev2), bb)
+                searched = min(bb, n_passing)
+                with self._lock:  # result assembly reads host columns
+                    return [self._radius_results_np(
+                        dist_np[i], rows_np[i], float(radii[i]),
+                        int(cnt[i]) if cnt is not None else searched,
+                        n_records) for i in range(n_real)]
+
+            return self._leased_finish(finish_ann)
+
+        # exhaustive: shared top-kk with escalation (one dispatch per round
+        # serves the whole group)
+        searched = n_passing
+        exact = precision == "exact"
+        eps = self._F32_EPS_REL * np.maximum(1.0, radii) if exact \
+            else np.zeros_like(radii)
+        kk0 = min(1024, n_passing)
+        tmargin0 = self._seg_margin_hint
+        dispatched = self._exact_topk_device(queries, dev, valid, kk0,
+                                             tie_margin=tmargin0)
+
+        def finish_exh() -> list[SearchResults]:
+            kk, tm = kk0, tmargin0
+            dist, rows, ties, s_used, nseg = dispatched
+            first_fail = None
+            while True:
+                dist_np, rows_np, tie_np = self._fetch_results(dist, rows,
+                                                               ties)
+                if s_used < nseg:
+                    if first_fail is None:
+                        first_fail = 1.0 - float(tie_np[:n_real].mean())
+                    if int(tie_np.min()) == 0:
+                        with self._lock:  # margin escalation re-dispatch
+                            tm = self._escalate_margin(tm)
+                            dev2 = self._device_state()
+                            dist, rows, ties, s_used, nseg = \
+                                self._exact_topk_device(
+                                    queries, dev2, cur_valid(dev2), kk,
+                                    tie_margin=tm)
+                        continue
+                    with self._lock:
+                        self._note_margin(tm, first_fail, kk=kk,
+                                          n_real=n_real)
+                if kk >= n_passing or all(
+                        self._radius_done(dist_np[i], kk, radii[i], eps[i])
+                        for i in range(n_real)):
+                    break
+                kk = min(kk * 4, n_passing)
+                with self._lock:  # k escalation re-dispatch
+                    dev2 = self._device_state()
+                    dist, rows, ties, s_used, nseg = \
+                        self._exact_topk_device(queries, dev2,
+                                                cur_valid(dev2), kk,
+                                                tie_margin=tm)
+            out = []
+            with self._lock:  # result assembly reads host columns
+                for i in range(n_real):
+                    if exact:
+                        rows_i = rows_np[i][np.isfinite(dist_np[i])]
+                        out.append(self._radius_results_f64(
+                            qvecs[i], rows_i, float(radii[i]), searched,
+                            n_records))
+                    else:
+                        out.append(self._radius_results_np(
+                            dist_np[i], rows_np[i], float(radii[i]),
+                            searched, n_records))
+            return out
+
+        return self._leased_finish(finish_exh)
+
+    @staticmethod
+    def _radius_done(dist_row: np.ndarray, kk: int, radius: float,
+                     eps: float) -> bool:
+        """One query's escalation stop test: its candidate set is complete
+        when fewer than kk rows came back finite or the worst returned
+        distance already exceeds its radius (+ the exact-mode f32
+        cushion)."""
+        finite = dist_row[np.isfinite(dist_row)]
+        return len(finite) < kk or \
+            (len(finite) > 0 and finite[-1] > radius + eps)
+
+    def _radius_results_np(self, dist: np.ndarray, rows: np.ndarray,
+                           radius: float, searched: int,
+                           n_records: int) -> SearchResults:
+        """Assemble one query's radius results from fetched arrays."""
+        keep = np.flatnonzero(np.isfinite(dist) & (dist <= radius))
+        results = [self._mk_result(int(rows[i]), float(dist[i]))
+                   for i in keep]
+        return SearchResults(results, self._pct(searched, n_records))
 
     def _search_locked(self, args: SearchArgs):
         """Dispatch one search under the caller's lock: device kNN returns a
@@ -623,8 +853,6 @@ class Collection:
         n_records = len(self.columns)
         if args.k == 0 and args.radius == 0:
             return self._list_mode(args, n_records)
-        if args.radius > 0:
-            raise NotImplementedError(_RADIUS_TODO)
         if args.vector is None:
             raise ValueError("search requires a vector when k or radius is set")
         qvec = np.asarray(args.vector, dtype=np.float64)
@@ -632,6 +860,8 @@ class Collection:
             raise ValueError("query vector dimension mismatch")
         if n_records == 0:
             return SearchResults([], 0.0)
+        if args.radius > 0:
+            return self._radius_search(args, qvec)
         fin = self._knn_many_async(qvec[None, :], args, n_records)
         return lambda: fin()[0]
 
@@ -646,12 +876,14 @@ class Collection:
 
         Returns (dist, rows, ok_flags, s_used, nseg).  Where ok == 1 the
         result is PROVABLY the true top-k; otherwise the caller re-dispatches
-        with an escalated tie_margin.  The non-fused fallback (k past the
-        fused bound) selects over the full surface and returns
-        ok_flags=None."""
+        with an escalated tie_margin, until s_used reaches nseg (every
+        segment or row selected).  Past the fused bound (large k, or a large
+        batch at radius k) the dispatch selects rows from kernel K4's full
+        surface (scan.surface_topk): its margin, s_used and nseg count rows,
+        a margin of m segments standing for the m * 32 rows they hold."""
+        margin = scan.default_tie_margin() \
+            if tie_margin is None else tie_margin
         if scan.fused_k_ok(kk, queries.shape[0]):
-            margin = scan.default_tie_margin() \
-                if tie_margin is None else tie_margin
             if tie_margin is None and kk > scan.MAX_FUSED_K:
                 # large k: tie density at the k-th value scales with k
                 margin = max(margin, 64)
@@ -661,10 +893,13 @@ class Collection:
                 bits=self.quantization, metric=self.metric, k=kk,
                 tie_margin=margin, with_ties=True)
             return dist, rows, ties, min(kk + margin, nseg), nseg
-        dists = dist_ops.score_block(queries, dev["codes"], dev["norms"],
-                                     valid, self.quantization, self.metric)
-        d, r = dist_ops.top_k_smallest(dists, kk)
-        return d, r, None, 0, 0
+        n = self.columns.capacity
+        row_margin = min(margin * scan.DEFAULT_SEG, n)
+        dist, rows, ties = scan.surface_topk(
+            queries, dev["codes"], dev["norms"], valid,
+            bits=self.quantization, metric=self.metric, k=kk,
+            margin=row_margin)
+        return dist, rows, ties, min(kk + row_margin, n), n
 
     def _leased_finish(self, fin: Callable) -> Callable:
         """Hold a column-store snapshot lease across a deferred result
@@ -687,10 +922,15 @@ class Collection:
     def _queries(self, qvecs: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.float32(qvecs)).to(self.device)
 
-    def _valid(self, dev: dict, args: SearchArgs) -> torch.Tensor:
+    def _valid(self, dev: dict, args: SearchArgs,
+               mask: Optional[np.ndarray] = None) -> torch.Tensor:
+        """The validity column a search runs with: the placed column when
+        unfiltered, else the filter mask (re-evaluated when not given;
+        query strings hit the mask cache) uploaded to the device."""
         if args.filter is None and not args.filter_query:
             return dev["valid"]
-        mask, _ = self._filter_mask(args)
+        if mask is None:
+            mask, _ = self._filter_mask(args)
         return torch.from_numpy(mask).to(self.device)
 
     def _knn_many_async(self, qvecs: np.ndarray, args: SearchArgs,
@@ -723,7 +963,7 @@ class Collection:
 
         queries = self._queries(qvecs)
         dev = self._device_state()
-        valid = self._valid(dev, args)
+        valid = self._valid(dev, args, mask)
 
         if use_index:
             searched = min(budget, n_passing)
@@ -763,15 +1003,6 @@ class Collection:
         tmargin = self._seg_margin_hint
         dist, rows, ties, s_used, nseg = self._exact_topk_device(
             queries, dev, valid, k, tie_margin=tmargin)
-
-        if ties is None:
-            def finish_plain() -> list[SearchResults]:
-                dist_np, rows_np, _ = self._fetch_results(dist, rows)
-                with self._lock:
-                    return self._knn_results_np(dist_np, rows_np, k,
-                                                searched, n_records)
-
-            return self._leased_finish(finish_plain)
 
         def finish_escalate() -> list[SearchResults]:
             d, r, t = dist, rows, ties
@@ -869,17 +1100,14 @@ class Collection:
             dist, rows, ties, s_used, nseg = self._exact_topk_device(
                 queries, dev, valid, kk, tie_margin=tmargin)
             dist_np, rows_np, tie_np = self._fetch_results(dist, rows, ties)
-            if first_fail is None and ties is not None:
+            if first_fail is None:
                 first_fail = 1.0 - float(tie_np[:n_real].mean())
-            if ties is not None and s_used < nseg and \
-                    int(tie_np.min()) == 0:
+            if s_used < nseg and int(tie_np.min()) == 0:
                 # the shortlist itself may be incomplete: widen the
                 # segment margin first
                 tmargin = self._escalate_margin(tmargin)
                 continue
-            self._note_margin(tmargin, first_fail
-                              if first_fail is not None else 1.0, kk=kk,
-                              n_real=n_real)
+            self._note_margin(tmargin, first_fail, kk=kk, n_real=n_real)
             out = []
             ok = True
             for qi in range(nq):
@@ -905,6 +1133,51 @@ class Collection:
             m *= 4
         pct = self._pct(searched, n_records)
         return [SearchResults(r, pct) for r in out]
+
+    def _radius_search(self, args: SearchArgs, qvec: np.ndarray):
+        """Single-query radius search: the Q=1 case of the batched
+        escalation loop.  Returns SearchResults (host path) or a finish()
+        callable (device paths: the fetch runs without the caller's
+        lock)."""
+        out = self._radius_many_async(
+            args, qvec[None, :], np.array([float(args.radius)]), n_real=1)
+        if callable(out):
+            return lambda: out()[0]
+        return out[0]
+
+    def _radius_results_f64(self, qvec: np.ndarray, rows_np: np.ndarray,
+                            radius: float, searched: int,
+                            n_records: int) -> SearchResults:
+        """f64 re-filter and re-sort of the device shortlist (exact
+        mode)."""
+        if len(rows_np) == 0:
+            return SearchResults([], self._pct(searched, n_records))
+        d64 = dist_ops.distance_np(
+            np.asarray(qvec, dtype=np.float64)[None, :],
+            self._rows_vectors_f64(rows_np), self.metric)
+        keep = np.flatnonzero(d64 <= radius)
+        order = keep[np.argsort(d64[keep], kind="stable")]
+        results = [self._mk_result(int(rows_np[i]), float(d64[i]))
+                   for i in order]
+        return SearchResults(results, self._pct(searched, n_records))
+
+    def _host_scan_radius(self, qvec: np.ndarray, radius: float,
+                          mask: np.ndarray, n_passing: int,
+                          n_records: int) -> SearchResults:
+        """Exhaustive radius scan on the host in f64 (small collections)."""
+        size = self.columns.size
+        live = np.flatnonzero(mask[:size])
+        pct = self._pct(n_passing, n_records)
+        if len(live) == 0:
+            return SearchResults([], pct)
+        vecs = qz.device_repr_to_float(self.columns.codes[live],
+                                       self.quantization,
+                                       self.dimension_count)
+        d = dist_ops.distance_np(qvec[None, :], vecs, self.metric)
+        hit = np.flatnonzero(d <= radius)
+        order = hit[np.argsort(d[hit], kind="stable")]
+        return SearchResults(
+            [self._mk_result(int(live[i]), float(d[i])) for i in order], pct)
 
     def _host_scan_knn(self, qvecs: np.ndarray, k: int, mask: np.ndarray,
                        n_passing: int, n_records: int) -> list[SearchResults]:
@@ -966,10 +1239,11 @@ class Collection:
         return cached[1]
 
     def _list_mode(self, args: SearchArgs, n_records: int) -> SearchResults:
-        if args.filter_query:
-            raise NotImplementedError(_FILTER_TODO)
         ordered = self._sorted_doc_ids()
         flt = args.filter
+        if flt is None and args.filter_query:
+            from .. import build_filter
+            flt = build_filter(args.filter_query)
         if flt is None:
             # "considered" counts records visited by the sequential walk
             # (offset skips still visit, collection.go:643-668)

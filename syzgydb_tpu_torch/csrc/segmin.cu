@@ -1,30 +1,36 @@
-// K1: fused code-matmul + surrogate epilogue + 32-row segment minimum.
+// K1, K5, K6: fused code-matmul + surrogate epilogue + SEG-row segment
+// minimum.
 //
-// Replaces syzgydb_tpu/ops/pallas_scan.py::_segmin_ilv_kernel (wrapper
-// segment_min_scan_ilv).  For every query q and every SEG-row segment s it
-// writes min over the segment's valid rows r of the surrogate distance
+// Replaces syzgydb_tpu/ops/pallas_scan.py::_segmin_ilv_kernel (K1, wrapper
+// segment_min_scan_ilv, 32-row segments) and the two archived TPU layouts
+// of the same function at a free segment length,
+// tools_dev/superseded_kernels.py::_segmin_kernel (K5, transposed (B, Q)
+// layout, wrapper segment_min_scan) and ::_segmin_nat_loop_kernel (K6,
+// natural layout, wrapper segment_min_scan_nat).  For every query q and
+// every SEG-row segment s it writes min over the segment's valid rows r of
+// the surrogate distance (scan_tile::surrogate)
 //   euclidean: max(|q|^2 - 2 dot + |v_r|^2, 0)
 //   cosine:    (1 - clip(dot * rsqrt(|q|^2 |v_r|^2), -1, 1)) / 2,
 //              1.0 where |q|^2 |v_r|^2 == 0
 // with dot = scale * (q . c_r) + offset * sum(q) for 4/8/16-bit codes and
 // the raw q . c_r for 32/64-bit (f32) codes; invalid rows are +inf.  Output
-// is (Q, N/SEG) f32 in ORIGINAL segment order.
+// is (Q, N/SEG) f32 in ORIGINAL segment order, SEG in {16, 32, 64, 128}.
 //
-// Layout: the TPU kernel needed a segment-interleaved, transposed copy of
-// the codes so that Mosaic could fold minima over whole lane tiles.  Here
-// the codes stay in their natural row-major (N, W) layout: a block owns
-// a BQ x BR tile of (queries x rows), stages the code tile (decoded to f32)
-// and the query tile in shared memory, and every thread accumulates a
-// TQ x TR register tile.  Thread tx of a 16-wide row group holds rows
-// tx + 16 j, so each 32-row segment is spread over the 16 tx lanes of one
-// half-warp (two rows each) and its minimum is a 4-step __shfl_xor_sync
-// reduction.
+// Layout: the TPU kernels needed a segment-interleaved or transposed copy
+// of the codes (or a rotate-accumulator) so that Mosaic could fold minima
+// over whole lane tiles; the three TPU kernels differ only in that layout.
+// Here the codes stay in their natural row-major (N, W) layout and one
+// kernel serves every segment length: the tile loop (scan_tile.cuh) leaves
+// thread tx holding rows tx + 16 j of a 128-row tile, so segment s of the
+// tile is rows tx + 16 j for j in [s*J, (s+1)*J), J = SEG/16.  Each thread
+// first folds its J rows of the segment, then a 4-step __shfl_xor_sync
+// reduction over the half-warp's 16 lanes finishes it (SEG = 128 folds all
+// 8 rows: one segment per tile).
 //
 // Arithmetic: fp32 FMA at every width (option (i) of the port's design).
 // 4/8/16-bit centered codes and f32 codes are exact in f32, queries are not
 // rounded, so the only error is f32 accumulation (~D * 2^-24 relative) —
-// inside surface_accum_eps, and the bf16 query-rounding term the reference
-// flag still carries is pure slack.  The same arithmetic serves exact=True.
+// inside surface_accum_eps.  The same arithmetic serves exact=True.
 //
 // Bound on the H100: 2*Q*N*D operations.  At Q=1024, N=1M, D=384 that is
 // ~0.8 TFLOP: compute-bound (0.8 ms at the 989 TFLOP/s bf16 tensor rate,
@@ -35,42 +41,13 @@
 // loads per k step; tensor cores (bf16 mma/wgmma with the reference's
 // exact hi/lo and bf16x2 code splits), TMA and pipelining are later work.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "scan_tile.cuh"
 
 namespace {
 
-constexpr int SEG = 32;
-constexpr int TX = 16;           // threads along rows
-constexpr int TY = 16;           // threads along queries
-constexpr int TQ = 8;            // queries per thread
-constexpr int TR = 8;            // rows per thread (rows tx + 16 j)
-constexpr int BQ = TY * TQ;      // 128 queries per block
-constexpr int BR = TX * TR;      // 128 rows per block = 4 segments
-constexpr int BK = 32;           // decoded dims per shared-memory stage
-constexpr int NTHREADS = TX * TY;
-constexpr int CS_STRIDE = BR + 1;  // odd: conflict-free transposed stores
+using namespace scan_tile;
 
-// decoded value of dim k of row `row` (f32; centered code for 4/8/16-bit)
-template <int BITS>
-__device__ __forceinline__ float decode(const void* codes, long row, int k,
-                                        int row_elems) {
-  if (BITS == 4) {
-    uint8_t b = static_cast<const uint8_t*>(codes)[row * row_elems + (k >> 1)];
-    int nib = (k & 1) ? (b & 0xF) : (b >> 4);
-    return static_cast<float>(nib - 8);
-  } else if (BITS == 8) {
-    return static_cast<float>(
-        static_cast<const int8_t*>(codes)[row * row_elems + k]);
-  } else if (BITS == 16) {
-    return static_cast<float>(
-        static_cast<const int16_t*>(codes)[row * row_elems + k]);
-  } else {
-    return static_cast<const float*>(codes)[row * row_elems + k];
-  }
-}
-
-template <int BITS, bool COSINE>
+template <int BITS, bool COSINE, int SEG>
 __global__ void __launch_bounds__(NTHREADS)
 segmin_kernel(const float* __restrict__ queries,  // (Q, K) f32, zero-padded
               const void* __restrict__ codes,     // (N, row_elems)
@@ -81,54 +58,17 @@ segmin_kernel(const float* __restrict__ queries,  // (Q, K) f32, zero-padded
               float* __restrict__ out,            // (Q, N / SEG)
               int Q, long N, int K, int row_elems, float scale,
               float offset) {
-  __shared__ __align__(16) float Qs[BK][BQ];
-  __shared__ float Cs[BK][CS_STRIDE];
+  static_assert(SEG % TX == 0 && BR % SEG == 0, "SEG must be 16..128");
+  constexpr int J = SEG / TX;   // rows of one segment per thread
+  constexpr int NS = BR / SEG;  // segments per tile
 
-  const int tid = threadIdx.x;
-  const int tx = tid % TX;
-  const int ty = tid / TX;
+  const int tx = threadIdx.x % TX;
+  const int ty = threadIdx.x / TX;
   const long row0 = static_cast<long>(blockIdx.x) * BR;
   const int q0 = blockIdx.y * BQ;
 
   float acc[TQ][TR];
-#pragma unroll
-  for (int i = 0; i < TQ; ++i)
-#pragma unroll
-    for (int j = 0; j < TR; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BK) {
-    // code tile: consecutive threads walk the dims of one row (coalesced)
-    for (int idx = tid; idx < BR * BK; idx += NTHREADS) {
-      const int r = idx / BK, kk = idx % BK;
-      const long row = row0 + r;
-      const int k = k0 + kk;
-      Cs[kk][r] = (row < N && k < K) ? decode<BITS>(codes, row, k, row_elems)
-                                     : 0.f;
-    }
-    // query tile: consecutive threads walk queries (conflict-free stores)
-    for (int idx = tid; idx < BQ * BK; idx += NTHREADS) {
-      const int qq = idx % BQ, kk = idx / BQ;
-      const int q = q0 + qq;
-      const int k = k0 + kk;
-      Qs[kk][qq] = (q < Q && k < K) ? queries[static_cast<long>(q) * K + k]
-                                    : 0.f;
-    }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&Qs[kk][ty * TQ]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&Qs[kk][ty * TQ + 4]);
-      const float a[TQ] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      float b[TR];
-#pragma unroll
-      for (int j = 0; j < TR; ++j) b[j] = Cs[kk][tx + TX * j];
-#pragma unroll
-      for (int i = 0; i < TQ; ++i)
-#pragma unroll
-        for (int j = 0; j < TR; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
+  accumulate<BITS>(queries, codes, Q, N, K, row_elems, row0, q0, acc);
 
   // epilogue: surrogate per (query, row), then the segment minimum
   float vn[TR];
@@ -148,23 +88,13 @@ segmin_kernel(const float* __restrict__ queries,  // (Q, K) f32, zero-padded
     const float off = qok ? offset * qsum[q] : 0.f;
     float d[TR];
 #pragma unroll
-    for (int j = 0; j < TR; ++j) {
-      const float dot = scale * acc[i][j] + off;
-      float s;
-      if (COSINE) {
-        const float den = n2 * vn[j];
-        float c = den > 0.f ? dot * rsqrtf(den) : -1.f;
-        c = fminf(fmaxf(c, -1.f), 1.f);
-        s = (1.f - c) * 0.5f;
-      } else {
-        s = fmaxf(n2 - 2.f * dot + vn[j], 0.f);
-      }
-      d[j] = vok[j] ? s : __int_as_float(0x7f800000);
-    }
+    for (int j = 0; j < TR; ++j)
+      d[j] = surrogate<COSINE>(acc[i][j], scale, off, n2, vn[j], vok[j]);
 #pragma unroll
-    for (int s = 0; s < BR / SEG; ++s) {
-      // segment s of this tile = rows tx + 16 j for j in {2s, 2s+1}
-      float m = fminf(d[2 * s], d[2 * s + 1]);
+    for (int s = 0; s < NS; ++s) {
+      float m = d[s * J];
+#pragma unroll
+      for (int jj = 1; jj < J; ++jj) m = fminf(m, d[s * J + jj]);
 #pragma unroll
       for (int lane = TX / 2; lane >= 1; lane >>= 1)
         m = fminf(m, __shfl_xor_sync(0xffffffffu, m, lane));
@@ -174,56 +104,91 @@ segmin_kernel(const float* __restrict__ queries,  // (Q, K) f32, zero-padded
   }
 }
 
-template <int BITS>
+template <int BITS, int SEG>
 void launch(bool cosine, dim3 grid, cudaStream_t st, const float* queries,
             const void* codes, const float* norms, const uint8_t* valid,
             const float* qn2, const float* qsum, float* out, int Q, long N,
             int K, int row_elems, float scale, float offset) {
   if (cosine)
-    segmin_kernel<BITS, true><<<grid, NTHREADS, 0, st>>>(
+    segmin_kernel<BITS, true, SEG><<<grid, NTHREADS, 0, st>>>(
         queries, codes, norms, valid, qn2, qsum, out, Q, N, K, row_elems,
         scale, offset);
   else
-    segmin_kernel<BITS, false><<<grid, NTHREADS, 0, st>>>(
+    segmin_kernel<BITS, false, SEG><<<grid, NTHREADS, 0, st>>>(
         queries, codes, norms, valid, qn2, qsum, out, Q, N, K, row_elems,
         scale, offset);
+}
+
+template <int SEG>
+int launch_bits(int bits, bool cosine, dim3 grid, cudaStream_t st,
+                const float* queries, const void* codes, const float* norms,
+                const uint8_t* valid, const float* qn2, const float* qsum,
+                float* out, int Q, long N, int K, int row_elems, float scale,
+                float offset) {
+  switch (bits) {
+    case 4:
+      launch<4, SEG>(cosine, grid, st, queries, codes, norms, valid, qn2,
+                     qsum, out, Q, N, K, row_elems, scale, offset);
+      return 0;
+    case 8:
+      launch<8, SEG>(cosine, grid, st, queries, codes, norms, valid, qn2,
+                     qsum, out, Q, N, K, row_elems, scale, offset);
+      return 0;
+    case 16:
+      launch<16, SEG>(cosine, grid, st, queries, codes, norms, valid, qn2,
+                      qsum, out, Q, N, K, row_elems, scale, offset);
+      return 0;
+    case 32:
+      launch<32, SEG>(cosine, grid, st, queries, codes, norms, valid, qn2,
+                      qsum, out, Q, N, K, row_elems, scale, offset);
+      return 0;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
 
 // C entry point (bound with ctypes).  bits selects the code decoding: 4
 // (packed nibbles, K = 2 * row_elems), 8, 16, or 32 (f32 codes, also used
-// for 64-bit collections).  For 32-bit pass scale = 1, offset = 0.  N must
-// be a multiple of SEG.  Returns cudaGetLastError() after the launch.
+// for 64-bit collections).  For 32-bit pass scale = 1, offset = 0.  seg is
+// 16, 32, 64 or 128, and N must be a multiple of it.  Returns
+// cudaGetLastError() after the launch.
 extern "C" int segmin_launch(const float* queries, const void* codes,
                              const float* norms, const uint8_t* valid,
                              const float* qn2, const float* qsum, float* out,
                              int Q, long N, int K, int row_elems, int bits,
-                             int cosine, float scale, float offset,
+                             int cosine, float scale, float offset, int seg,
                              void* stream) {
   if (Q <= 0 || N <= 0) return 0;
   const dim3 grid(static_cast<unsigned>((N + BR - 1) / BR),
                   static_cast<unsigned>((Q + BQ - 1) / BQ));
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (bits) {
-    case 4:
-      launch<4>(cosine, grid, st, queries, codes, norms, valid, qn2, qsum,
-                out, Q, N, K, row_elems, scale, offset);
-      break;
-    case 8:
-      launch<8>(cosine, grid, st, queries, codes, norms, valid, qn2, qsum,
-                out, Q, N, K, row_elems, scale, offset);
-      break;
+  int rc;
+  switch (seg) {
     case 16:
-      launch<16>(cosine, grid, st, queries, codes, norms, valid, qn2, qsum,
-                 out, Q, N, K, row_elems, scale, offset);
+      rc = launch_bits<16>(bits, cosine, grid, st, queries, codes, norms,
+                           valid, qn2, qsum, out, Q, N, K, row_elems, scale,
+                           offset);
       break;
     case 32:
-      launch<32>(cosine, grid, st, queries, codes, norms, valid, qn2, qsum,
-                 out, Q, N, K, row_elems, scale, offset);
+      rc = launch_bits<32>(bits, cosine, grid, st, queries, codes, norms,
+                           valid, qn2, qsum, out, Q, N, K, row_elems, scale,
+                           offset);
+      break;
+    case 64:
+      rc = launch_bits<64>(bits, cosine, grid, st, queries, codes, norms,
+                           valid, qn2, qsum, out, Q, N, K, row_elems, scale,
+                           offset);
+      break;
+    case 128:
+      rc = launch_bits<128>(bits, cosine, grid, st, queries, codes, norms,
+                            valid, qn2, qsum, out, Q, N, K, row_elems, scale,
+                            offset);
       break;
     default:
-      return static_cast<int>(cudaErrorInvalidValue);
+      rc = static_cast<int>(cudaErrorInvalidValue);
   }
+  if (rc != 0) return rc;
   return static_cast<int>(cudaGetLastError());
 }

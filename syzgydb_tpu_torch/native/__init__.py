@@ -1,10 +1,11 @@
-"""ctypes bindings for the native span-log core (root native/spanlog_core.cpp).
+"""ctypes bindings for the native span-log core (root native/spanlog_core.cpp)
+and the JSON field projector (root native/jsonproj.cpp).
 
-The port builds the shared repo source into ITS OWN directory
-(syzgydb_tpu_torch/native/libspanlog_core.so, on first use when g++ is
-available) and never touches the JAX package's copy.  storage.py falls back
-to the pure-Python implementation when no library loads, so the native
-library is an accelerator, never a requirement.
+The port builds the shared repo sources into ITS OWN directory
+(syzgydb_tpu_torch/native/lib*.so, on first use when g++ is available) and
+never touches the JAX package's copies.  storage.py and query/columnar.py
+fall back to their pure-Python paths (host parsing) when no library loads,
+so the native libraries are accelerators, never requirements.
 """
 
 from __future__ import annotations
@@ -240,3 +241,104 @@ def scan(data: bytes):
         # the python scan, which skip-and-resyncs it
         return None
     return out
+
+
+# ---------------------------------------------------------------------------
+# JSON field projector (native/jsonproj.cpp)
+# ---------------------------------------------------------------------------
+
+_JP_PATH = os.path.join(os.path.dirname(__file__), "libjsonproj.so")
+_jp = None
+
+
+def _try_build_jp() -> None:
+    _build_lib("jsonproj.cpp", _JP_PATH)
+
+
+def get_jsonproj():
+    """ctypes handle for the JSON projector, or None."""
+    global _jp
+    if _jp is not None:
+        return _jp
+    if not os.path.exists(_JP_PATH):
+        _try_build_jp()
+    if not os.path.exists(_JP_PATH):
+        return None
+    try:
+        lib = ctypes.CDLL(_JP_PATH)
+    except OSError:
+        return None
+    lib.jp_extract.restype = None
+    lib.jp_extract.argtypes = [
+        ctypes.POINTER(ctypes.c_uint8),    # data
+        ctypes.POINTER(ctypes.c_uint64),   # starts
+        ctypes.POINTER(ctypes.c_uint32),   # lens
+        ctypes.c_uint64,                   # n
+        ctypes.POINTER(ctypes.c_char_p),   # fields
+        ctypes.POINTER(ctypes.c_uint32),   # field_lens
+        ctypes.c_uint32,                   # nf
+        ctypes.POINTER(ctypes.c_uint8),    # kinds (n, nf)
+        ctypes.POINTER(ctypes.c_double),   # nums (n, nf)
+        ctypes.POINTER(ctypes.c_int64),    # str_off (n, nf)
+        ctypes.POINTER(ctypes.c_int32),    # str_len (n, nf)
+        ctypes.POINTER(ctypes.c_uint8),    # row_flags (n,)
+    ]
+    _jp = lib
+    return _jp
+
+
+def jp_extract(docs: list, fields: list):
+    """Project top-level scalar fields out of N JSON documents in one native
+    pass.  docs: list of bytes|None (None/empty -> fallback row).
+
+    Returns (kinds (n, nf) u8, nums (n, nf) f64, strs (n, nf) object —
+    decoded str or None, row_flags (n,) u8) with flag 1 meaning "python must
+    re-parse this row"; returns None when the library is unavailable."""
+    lib = get_jsonproj()
+    if lib is None:
+        return None
+    n, nf = len(docs), len(fields)
+    blobs = [d if d is not None else b"" for d in docs]
+    data = b"".join(blobs)
+    lens = np.fromiter((len(b) for b in blobs), dtype=np.uint32, count=n)
+    starts = np.zeros(n, dtype=np.uint64)
+    np.cumsum(lens[:-1], out=starts[1:])
+    kinds = np.zeros((n, nf), dtype=np.uint8)
+    nums = np.zeros((n, nf), dtype=np.float64)
+    str_off = np.zeros((n, nf), dtype=np.int64)
+    str_len = np.zeros((n, nf), dtype=np.int32)
+    flags = np.zeros(n, dtype=np.uint8)
+
+    fbytes = [f.encode() for f in fields]
+    carr = (ctypes.c_char_p * nf)(*fbytes)
+    flens = np.fromiter((len(f) for f in fbytes), dtype=np.uint32, count=nf)
+
+    u8p = ctypes.POINTER(ctypes.c_uint8)
+    lib.jp_extract(
+        ctypes.cast(ctypes.c_char_p(data), u8p),
+        starts.ctypes.data_as(ctypes.POINTER(ctypes.c_uint64)),
+        lens.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        n, carr,
+        flens.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
+        nf,
+        kinds.ctypes.data_as(u8p),
+        nums.ctypes.data_as(ctypes.POINTER(ctypes.c_double)),
+        str_off.ctypes.data_as(ctypes.POINTER(ctypes.c_int64)),
+        str_len.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        flags.ctypes.data_as(u8p),
+    )
+
+    # decode strings: plain ones slice straight out of the buffer; ones with
+    # escapes (str_len == -1) force the row through the python fallback
+    strs = np.empty((n, nf), dtype=object)
+    esc_rows = (kinds == 2) & (str_len < 0)
+    if esc_rows.any():
+        flags[np.any(esc_rows, axis=1)] = 1
+    rs, fs = np.nonzero((kinds == 2) & (str_len >= 0))
+    for r, f in zip(rs.tolist(), fs.tolist()):
+        o = str_off[r, f]
+        try:
+            strs[r, f] = data[o:o + str_len[r, f]].decode("utf-8")
+        except UnicodeDecodeError:
+            flags[r] = 1
+    return kinds, nums, strs, flags

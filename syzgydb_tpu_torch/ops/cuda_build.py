@@ -20,7 +20,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("segmin", "hamming")
+SOURCES = ("segmin", "hamming", "surface")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -37,10 +37,14 @@ def _lib_path(name: str) -> str:
 
 
 def _stale(name: str) -> bool:
+    """Whether the library is missing or older than its source or any
+    shared header (csrc/*.cuh)."""
     lib = _lib_path(name)
-    src = os.path.join(CSRC, f"{name}.cu")
-    return not os.path.exists(lib) or \
-        os.path.getmtime(lib) < os.path.getmtime(src)
+    if not os.path.exists(lib):
+        return True
+    deps = [os.path.join(CSRC, f"{name}.cu")] + [
+        os.path.join(CSRC, f) for f in os.listdir(CSRC) if f.endswith(".cuh")]
+    return os.path.getmtime(lib) < max(os.path.getmtime(d) for d in deps)
 
 
 def _start(name: str) -> tuple[subprocess.Popen, str]:

@@ -10,9 +10,9 @@ Semantics match the SyzgyDB Go reference exactly (collection.go:812-832):
   epsilon above 1 — we deliberately clamp instead, documented deviation.)
 
 The host half (numpy, float64) is a verbatim copy of the JAX package's.  The
-device half is the non-fused fallback Collection needs when a dispatch does
-not fit the fused scan (``scan.fused_k_ok``): one (Q, D) x (D, N) fp32
-product over the *centered integer codes* (see ops/quantize.py).  With
+device half holds the reranks' helpers: fp32 contractions of queries with
+gathered *centered integer codes* (see ops/quantize.py), the reference
+angular distance, and the (value, row) top-k order.  With
 dequant(c) = s * c + o:
 
     dot(q, v)   = s * (q @ c^T) + o * sum(q)
@@ -239,28 +239,6 @@ def affine_dots(queries: torch.Tensor, raw: torch.Tensor, bits: int):
     return scale * raw + offset * queries.sum(dim=-1, keepdim=True)
 
 
-def _code_matmul(queries: torch.Tensor, codes: torch.Tensor,
-                 bits: int) -> torch.Tensor:
-    """(Q, D) f32 x (N, D|P) codes -> (Q, N) f32 dot(q, dequant(v)), one
-    full-fp32 product (no width rides a reduced-precision dot)."""
-    if bits == 4:
-        return packed4_dots(queries, codes)
-    with full_f32():
-        raw = queries @ codes.to(torch.float32).T
-    return affine_dots(queries, raw, bits)
-
-
-def packed4_dots(queries: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
-    """(Q, D) f32 x (N, P) packed uint8 -> (Q, N) f32 dot(q, dequant(v)):
-    two half-width products on the nibble planes (even dims x high
-    nibbles, odd dims x low nibbles; odd D drops the pad nibble)."""
-    qe, qo = queries[:, 0::2], queries[:, 1::2]
-    h, low = split_nibbles(codes)
-    with full_f32():
-        raw = qe @ h.T + qo @ low[:, : qo.shape[1]].T
-    return affine_dots(queries, raw, 4)
-
-
 def packed4_dots_batched(queries: torch.Tensor,
                          ccodes: torch.Tensor) -> torch.Tensor:
     """(Q, D) f32 x (Q, C, P) packed uint8 -> (Q, C) f32 per-candidate dots."""
@@ -297,27 +275,6 @@ def angular_from_dots(queries: torch.Tensor, dots: torch.Tensor,
     return torch.where((qn == 0.0) | (vn == 0.0), torch.ones_like(dist), dist)
 
 
-def score_block(queries: torch.Tensor, codes: torch.Tensor,
-                row_norms: torch.Tensor, valid: torch.Tensor, bits: int,
-                metric: Metric) -> torch.Tensor:
-    """Distances (Q, N) f32; invalid rows get +inf.
-
-    queries: (Q, D) f32 — the RAW query values, intentionally NOT quantized:
-             the reference compares the raw query against dequantized stored
-             vectors (collection.go:583-596), and so do we.
-    codes:   (N, D|P) device representation (int8/int16/f32/packed uint8).
-    row_norms: (N,) f32 squared norms of dequantized rows.
-    valid:   (N,) bool — live (non-tombstoned, non-padding, filter-passing).
-    """
-    dots = _code_matmul(queries, codes, bits)               # (Q, N)
-    if metric == "euclidean":
-        qn = queries.square().sum(dim=-1, keepdim=True)
-        dist = (qn - 2.0 * dots + row_norms[None, :]).clamp_min(0.0).sqrt()
-    else:
-        dist = angular_from_dots(queries, dots, row_norms[None, :])
-    return torch.where(valid[None, :], dist, torch.full_like(dist, np.inf))
-
-
 def sort_topk(dist: torch.Tensor, rows: torch.Tensor, k: int):
     """The k smallest of each row of dist, ordered by (value, row) — a
     deterministic order at tied values, where torch.topk promises none.
@@ -327,10 +284,3 @@ def sort_topk(dist: torch.Tensor, rows: torch.Tensor, k: int):
     r = torch.gather(rows, 1, by_row)
     order = torch.argsort(d, dim=1, stable=True)[:, :k]
     return torch.gather(d, 1, order), torch.gather(r, 1, order)
-
-
-def top_k_smallest(dist: torch.Tensor, k: int):
-    """Exact top-k smallest along the last axis -> (values, indices),
-    ascending, ties broken by the lower index."""
-    order = torch.argsort(dist, dim=1, stable=True)[:, :k]
-    return torch.gather(dist, 1, order), order

@@ -1,10 +1,14 @@
-"""Hamming sketch surface: the wrapper of kernel K2 (``csrc/hamming.cu``)
-and its plain PyTorch version.
+"""Hamming sketch surfaces: the wrappers of kernels K2 and K3
+(``csrc/hamming.cu``) and their plain PyTorch versions.
 
-Counterpart of ``syzgydb_tpu/ops/pallas_hamming.py::hamming_scores_bf16``:
-(Q, W) query sketches x (N, W) row sketches + (N,) validity -> (Q, N) f32
-Hamming distances, invalid rows 16384.  Sketch words are uint32 values
-carried in int32 tensors (same bits; PyTorch's uint32 support is partial).
+K2 is the counterpart of
+``syzgydb_tpu/ops/pallas_hamming.py::hamming_scores_bf16``: (Q, W) query
+sketches x (N, W) row sketches + (N,) validity -> (Q, N) f32 Hamming
+distances, invalid rows 16384.  K3 (``hamming_scores_u8``) is the
+counterpart of ``pallas_hamming.hamming_scores``: the same distances with
+no mask as a uint8 surface, wrapping at 256 as that function's uint8 cast
+does.  Sketch words are uint32 values carried in int32 tensors (same bits;
+PyTorch's uint32 support is partial).
 
 A CUDA tensor launches the kernel (or raises); a CPU tensor runs the plain
 version.  PyTorch has no popcount operator, so on the GPU the surface is
@@ -21,7 +25,9 @@ from . import cuda_build
 
 INVALID = 16384.0
 
-launches = 0  # kernel launches (plain-integer counter; reset by callers)
+# plain-integer launch counters (reset by callers)
+launches = 0     # K2
+u8_launches = 0  # K3
 
 
 def _popcount32(x: torch.Tensor) -> torch.Tensor:
@@ -38,28 +44,45 @@ def hamming_scores_plain(qcodes: torch.Tensor, hashes: torch.Tensor,
                          valid: torch.Tensor) -> torch.Tensor:
     """Plain version of K2 (per-word accumulate, like the JAX package's XLA
     loop, _hamming_candidates_xla)."""
+    out = _hamming_counts(qcodes, hashes).to(torch.float32)
+    return torch.where(valid[None, :], out, torch.full_like(out, INVALID))
+
+
+def hamming_scores_u8_plain(qcodes: torch.Tensor,
+                            hashes: torch.Tensor) -> torch.Tensor:
+    """Plain version of K3: the low 8 bits of each count, as uint8."""
+    return (_hamming_counts(qcodes, hashes) & 0xFF).to(torch.uint8)
+
+
+def _hamming_counts(qcodes: torch.Tensor, hashes: torch.Tensor):
+    """(Q, N) int64 Hamming counts, one word at a time (like the JAX
+    package's XLA loop, _hamming_candidates_xla)."""
     q = qcodes.to(torch.int32)
     ham = torch.zeros((q.shape[0], hashes.shape[0]), dtype=torch.int64,
                       device=hashes.device)
     for w in range(hashes.shape[1]):
         ham += _popcount32(torch.bitwise_xor(q[:, w, None],
                                              hashes[None, :, w]))
-    out = ham.to(torch.float32)
-    return torch.where(valid[None, :], out, torch.full_like(out, INVALID))
+    return ham
 
 
-def _check(qcodes, hashes, valid):
+def _check(qcodes, hashes, valid=None):
     q, w = qcodes.shape
     n, w2 = hashes.shape
     if w != w2:
         raise ValueError(f"sketch widths differ: {w} vs {w2}")
-    if valid.shape != (n,) or valid.dtype != torch.bool:
+    if valid is not None and (valid.shape != (n,) or
+                              valid.dtype != torch.bool):
         raise ValueError("valid must be an (N,) bool tensor")
     for t in (qcodes, hashes):
         if t.dtype != torch.int32:
             raise TypeError("sketch words must be int32 tensors")
-    if not (qcodes.device == hashes.device == valid.device):
+    devs = {t.device for t in (qcodes, hashes, valid) if t is not None}
+    if len(devs) != 1:
         raise ValueError("qcodes, hashes and valid must share a device")
+    for t in (qcodes, hashes, valid):
+        if t is not None and t.device.type not in ("cpu", "cuda"):
+            raise ValueError(f"unsupported device {t.device}")
 
 
 def hamming_scores(qcodes: torch.Tensor, hashes: torch.Tensor,
@@ -71,11 +94,7 @@ def hamming_scores(qcodes: torch.Tensor, hashes: torch.Tensor,
     _check(qcodes, hashes, valid)
     if hashes.device.type == "cpu":
         return hamming_scores_plain(qcodes, hashes, valid)
-    if hashes.device.type != "cuda":
-        raise ValueError(f"unsupported device {hashes.device}")
-    for name, t in (("qcodes", qcodes), ("hashes", hashes), ("valid", valid)):
-        if not t.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
+    _check_contiguous(qcodes=qcodes, hashes=hashes, valid=valid)
     fn = cuda_build.entry("hamming", "hamming_launch", [ctypes.c_void_p] * 4 +
                           [ctypes.c_int, ctypes.c_long, ctypes.c_int,
                            ctypes.c_void_p])
@@ -86,4 +105,34 @@ def hamming_scores(qcodes: torch.Tensor, hashes: torch.Tensor,
             out.data_ptr(), q, n, w, cuda_build.launch_stream(hashes.device))
     cuda_build.check(rc, "hamming")
     launches += 1
+    return out
+
+
+def _check_contiguous(**tensors) -> None:
+    for name, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+
+
+def hamming_scores_u8(qcodes: torch.Tensor,
+                      hashes: torch.Tensor) -> torch.Tensor:
+    """(Q, W) x (N, W) int32 sketches -> (Q, N) uint8 Hamming distances
+    with no validity mask; a count of 256 (W = 8, every bit differs) wraps
+    to 0 as the JAX function's uint8 cast does.  CUDA tensors on the
+    current device launch K3; CPU tensors take the plain version."""
+    global u8_launches
+    _check(qcodes, hashes)
+    if hashes.device.type == "cpu":
+        return hamming_scores_u8_plain(qcodes, hashes)
+    _check_contiguous(qcodes=qcodes, hashes=hashes)
+    fn = cuda_build.entry("hamming", "hamming_u8_launch", [ctypes.c_void_p] * 3
+                          + [ctypes.c_int, ctypes.c_long, ctypes.c_int,
+                             ctypes.c_void_p])
+    q, w = qcodes.shape
+    n = hashes.shape[0]
+    out = torch.empty((q, n), dtype=torch.uint8, device=hashes.device)
+    rc = fn(qcodes.data_ptr(), hashes.data_ptr(), out.data_ptr(), q, n, w,
+            cuda_build.launch_stream(hashes.device))
+    cuda_build.check(rc, "hamming_u8")
+    u8_launches += 1
     return out

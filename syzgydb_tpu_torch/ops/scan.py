@@ -1,17 +1,25 @@
-"""Fused segment-min exhaustive scan: the wrapper of kernel K1
-(``csrc/segmin.cu``), its plain PyTorch version, and the provable
-select-and-rerank stage — the port of ``syzgydb_tpu/ops/pallas_scan.py``.
+"""Exhaustive scans: the wrappers of kernels K1/K5/K6 (``csrc/segmin.cu``)
+and K4 (``csrc/surface.cu``), their plain PyTorch versions, and the
+provable select-and-rerank stage — the port of
+``syzgydb_tpu/ops/pallas_scan.py``.
 
 Two phases, as in the JAX package:
 
   1. **Kernel K1** streams the codes once and writes, per query, the
      minimum surrogate distance of every SEG-row segment: a (Q, N/SEG) f32
-     surface instead of the (Q, N) distance matrix.
+     surface instead of the (Q, N) distance matrix.  The same kernel at
+     SEG in {16, 64, 128} is the port of the archived TPU layouts K5/K6.
   2. **Select and rerank**: the S = k + margin best segments are gathered
      contiguously and reranked in full fp32; a per-query flag proves that
      the k results are the true f32 top-k (EXACTNESS note on
      ``fused_scan_topk`` in the JAX package), otherwise Collection
      re-dispatches with a wider margin.
+
+Past the fused scan's bound on k (``fused_k_ok``) the non-fused selection
+(``surface_topk``) takes the kk + margin best rows of kernel K4's full
+(Q, N) f32 surface, reranks them with the same formula and keeps the kk
+best, with a flag that proves the cut as the fused scan's does; query
+chunks and rerank pieces keep it within a memory budget.
 
 Ranking uses a MONOTONIC SURROGATE of the metric (squared euclidean;
 (1-cos)/2 for angular); the exact transform is applied after the rerank.
@@ -20,8 +28,8 @@ The port keeps the outputs, not the TPU layouts: there is no
 segment-interleaved transposed operand, no 128-lane slab and no lean
 placement.  K1 reads the row-major (N, W) codes, and its minima are f32 at
 every width, so the f32-surface tie margin (6) applies to high and exact
-alike.  A CUDA tensor launches K1 (or raises); a CPU tensor runs the plain
-version.
+alike.  A CUDA tensor launches the kernel (or raises); a CPU tensor runs
+the plain version.
 """
 
 from __future__ import annotations
@@ -67,7 +75,13 @@ def default_tie_margin() -> int:
 # one piece.
 GATHER_BUDGET_BYTES = 1 << 30
 
-launches = 0  # K1 launches (plain-integer counter; reset by callers)
+# segment lengths the CUDA segment-min kernel is built for
+KERNEL_SEGS = (16, 32, 64, 128)
+
+# plain-integer launch counters (reset by callers)
+launches = 0            # K1: segment-min kernel at DEFAULT_SEG
+free_seg_launches = 0   # K5/K6: the same kernel at another segment length
+surface_launches = 0    # K4: full surface kernel
 
 _CODE_DTYPES = {4: torch.uint8, 8: torch.int8, 16: torch.int16,
                 32: torch.float32, 64: torch.float32}
@@ -77,43 +91,75 @@ _CODE_DTYPES = {4: torch.uint8, 8: torch.int8, 16: torch.int16,
 # K1: segment-min surface
 # ---------------------------------------------------------------------------
 
-def segment_min_scan_plain(queries, codes, norms, valid, *, bits: int,
-                           metric: str, seg: int = DEFAULT_SEG,
-                           dtype=torch.float32, block_rows: int = 1 << 17):
-    """Plain version of K1 in `dtype` (float32, or float64 as an exact
-    reference): one full-precision product of the decoded codes per row
-    block, the surrogate epilogue, and a reshape-min over each segment.
-    Row blocks bound the (Q, block) transients."""
-    q, d = queries.shape
-    n = codes.shape[0]
-    qx = queries.to(dtype)
-    qn2 = qx.square().sum(dim=-1, keepdim=True)
-    qsum = qx.sum(dim=-1, keepdim=True)
+def _surrogate_plain(qx, qn2, qsum, codes, norms, valid, *, bits: int,
+                     metric: str, dims: int, dtype):
+    """(Q, B) surrogate surface of one row block in `dtype`, invalid rows
+    +inf: the arithmetic every kernel of this module runs, in plain
+    PyTorch."""
     if bits in (4, 8, 16):
         scale, offset = qz.affine_constants(bits)
     else:
         scale, offset = 1.0, 0.0
+    c = dist_ops.decode_codes(codes, bits, dims).to(dtype)
+    with dist_ops.full_f32():
+        raw = qx @ c.T
+    dots = scale * raw + offset * qsum
+    nv = norms.to(dtype)[None, :]
+    if metric == "euclidean":
+        s = (qn2 - 2.0 * dots + nv).clamp_min(0.0)
+    else:
+        den = qn2 * nv
+        inv = torch.rsqrt(torch.where(den > 0.0, den, torch.ones_like(den)))
+        cos = torch.where(den > 0.0, dots * inv, torch.full_like(dots, -1.0))
+        s = (1.0 - cos.clamp(-1.0, 1.0)) * 0.5
+    return torch.where(valid[None, :], s, torch.full_like(s, np.inf))
+
+
+def _plain_blocks(queries, seg: int, dtype, block_rows: int):
+    """(qx, qn2, qsum, step) for a plain version walking the rows in blocks
+    of whole segments (the blocks bound the (Q, block) transients)."""
+    qx = queries.to(dtype)
+    qn2 = qx.square().sum(dim=-1, keepdim=True)
+    qsum = qx.sum(dim=-1, keepdim=True)
+    return qx, qn2, qsum, max(seg, block_rows // seg * seg)
+
+
+def segment_min_scan_plain(queries, codes, norms, valid, *, bits: int,
+                           metric: str, seg: int = DEFAULT_SEG,
+                           dtype=torch.float32, block_rows: int = 1 << 17):
+    """Plain version of K1/K5/K6 in `dtype` (float32, or float64 as an
+    exact reference): one full-precision product of the decoded codes per
+    row block, the surrogate epilogue, and a reshape-min over each
+    segment."""
+    q, d = queries.shape
+    n = codes.shape[0]
+    qx, qn2, qsum, step = _plain_blocks(queries, seg, dtype, block_rows)
     out = torch.empty((q, n // seg), dtype=dtype, device=codes.device)
-    step = max(seg, block_rows // seg * seg)
     for a in range(0, n, step):
-        c = dist_ops.decode_codes(codes[a:a + step], bits, d).to(dtype)
-        with dist_ops.full_f32():
-            raw = qx @ c.T
-        dots = scale * raw + offset * qsum
-        nv = norms[a:a + step].to(dtype)[None, :]
-        if metric == "euclidean":
-            s = (qn2 - 2.0 * dots + nv).clamp_min(0.0)
-        else:
-            den = qn2 * nv
-            inv = torch.rsqrt(torch.where(den > 0.0, den,
-                                          torch.ones_like(den)))
-            cos = torch.where(den > 0.0, dots * inv,
-                              torch.full_like(dots, -1.0))
-            s = (1.0 - cos.clamp(-1.0, 1.0)) * 0.5
-        s = torch.where(valid[a:a + step][None, :], s,
-                        torch.full_like(s, np.inf))
+        s = _surrogate_plain(qx, qn2, qsum, codes[a:a + step],
+                             norms[a:a + step], valid[a:a + step], bits=bits,
+                             metric=metric, dims=d, dtype=dtype)
         out[:, a // seg:(a + s.shape[1]) // seg] = \
             s.reshape(q, -1, seg).amin(dim=-1)
+    return out
+
+
+def score_surface_plain(queries, codes, norms, valid, *, bits: int,
+                        metric: str, exact: bool = False, dtype=None,
+                        block_rows: int = 1 << 17):
+    """Plain version of K4: the (Q, N) surrogate surface, invalid rows
+    +inf, computed in f32 (or `dtype`, e.g. float64 as an exact reference)
+    and returned in f32 when `exact`, else rounded to bf16."""
+    q, d = queries.shape
+    n = codes.shape[0]
+    work = torch.float32 if dtype is None else dtype
+    qx, qn2, qsum, step = _plain_blocks(queries, 1, work, block_rows)
+    out_t = work if (exact or dtype is not None) else torch.bfloat16
+    out = torch.empty((q, n), dtype=out_t, device=codes.device)
+    for a in range(0, n, step):
+        out[:, a:a + step] = _surrogate_plain(
+            qx, qn2, qsum, codes[a:a + step], norms[a:a + step],
+            valid[a:a + step], bits=bits, metric=metric, dims=d, dtype=work)
     return out
 
 
@@ -135,29 +181,17 @@ def _check_scan_args(queries, codes, norms, valid, bits, seg):
         raise ValueError("queries, codes, norms and valid must share a device")
 
 
-def segment_min_scan(queries, codes, norms, valid, *, bits: int, metric: str,
-                     seg: int = DEFAULT_SEG):
-    """(Q, D) f32 queries x (N, W) codes -> (Q, N/seg) f32 segment minima of
-    the surrogate distance, invalid rows +inf, in original segment order.
-
-    CUDA tensors on the current device launch K1 (fp32 FMA at every
-    width); CPU tensors take the plain version."""
-    global launches
-    _check_scan_args(queries, codes, norms, valid, bits, seg)
-    if codes.device.type == "cpu":
-        return segment_min_scan_plain(queries, codes, norms, valid, bits=bits,
-                                      metric=metric, seg=seg)
-    if codes.device.type != "cuda":
-        raise ValueError(f"unsupported device {codes.device}")
-    if seg != DEFAULT_SEG:
-        raise ValueError(f"K1 is built for {DEFAULT_SEG}-row segments")
+def _kernel_operands(queries, codes, norms, valid, bits):
+    """Check contiguity and prepare what the CUDA entry points take: the
+    f32 queries zero-padded to K decoded dims (4-bit: K = 2P, so an odd
+    D's pad nibble meets a zero), their |q|^2 and sum, and the affine
+    dequantization constants."""
     for name, t in (("codes", codes), ("norms", norms), ("valid", valid)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    q, d = queries.shape
-    n, w = codes.shape
+    d = queries.shape[1]
+    w = codes.shape[1]
     qx = queries.to(torch.float32)
-    # 4-bit: K = 2P decoded dims; the pad nibble meets a zero query dim
     k_dims = 2 * w if bits == 4 else d
     if k_dims != d:
         qx = torch.nn.functional.pad(qx, (0, k_dims - d))
@@ -168,18 +202,96 @@ def segment_min_scan(queries, codes, norms, valid, *, bits: int, metric: str,
         scale, offset = qz.affine_constants(bits)
     else:
         scale, offset = 1.0, 0.0
+    return qx, qn2, qsum, k_dims, scale, offset
+
+
+# segmin_launch and surface_launch take the same arguments: seven pointers
+# (queries, codes, norms, valid, qn2, qsum, out), Q, N, K, row_elems, bits,
+# cosine, scale, offset, then seg (segmin) or out_bf16 (surface), and the
+# stream
+_SCAN_ENTRY_ARGTYPES = [ctypes.c_void_p] * 7 + [
+    ctypes.c_int, ctypes.c_long, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
+    ctypes.c_void_p]
+
+
+def _cuda_device(codes) -> bool:
+    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+    if codes.device.type == "cpu":
+        return False
+    if codes.device.type != "cuda":
+        raise ValueError(f"unsupported device {codes.device}")
+    return True
+
+
+def segment_min_scan(queries, codes, norms, valid, *, bits: int, metric: str,
+                     seg: int = DEFAULT_SEG):
+    """(Q, D) f32 queries x (N, W) codes -> (Q, N/seg) f32 segment minima of
+    the surrogate distance, invalid rows +inf, in original segment order.
+
+    CUDA tensors on the current device launch the segment-min kernel (fp32
+    FMA at every width; K1 at seg 32, the K5/K6 port at seg 16, 64 or 128);
+    CPU tensors take the plain version at any seg."""
+    global launches, free_seg_launches
+    _check_scan_args(queries, codes, norms, valid, bits, seg)
+    if not _cuda_device(codes):
+        return segment_min_scan_plain(queries, codes, norms, valid, bits=bits,
+                                      metric=metric, seg=seg)
+    if seg not in KERNEL_SEGS:
+        raise ValueError(f"the segment-min kernel is built for segments of "
+                         f"{KERNEL_SEGS} rows, not {seg}")
+    q = queries.shape[0]
+    n, w = codes.shape
+    qx, qn2, qsum, k_dims, scale, offset = _kernel_operands(
+        queries, codes, norms, valid, bits)
     out = torch.empty((q, n // seg), dtype=torch.float32, device=codes.device)
-    fn = cuda_build.entry("segmin", "segmin_launch", [ctypes.c_void_p] * 7 + [
-        ctypes.c_int, ctypes.c_long, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
-        ctypes.c_void_p])
+    fn = cuda_build.entry("segmin", "segmin_launch", _SCAN_ENTRY_ARGTYPES)
     rc = fn(qx.data_ptr(), codes.data_ptr(), norms.data_ptr(),
             valid.data_ptr(), qn2.data_ptr(), qsum.data_ptr(), out.data_ptr(),
             q, n, k_dims, w, 32 if bits == 64 else bits,
-            int(metric != "euclidean"), scale, offset,
+            int(metric != "euclidean"), scale, offset, seg,
             cuda_build.launch_stream(codes.device))
     cuda_build.check(rc, "segmin")
-    launches += 1
+    if seg == DEFAULT_SEG:
+        launches += 1
+    else:
+        free_seg_launches += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# K4: full surrogate surface
+# ---------------------------------------------------------------------------
+
+def score_surface(queries, codes, norms, valid, *, bits: int, metric: str,
+                  exact: bool = False):
+    """(Q, D) f32 queries x (N, W) codes -> (Q, N) surrogate-distance
+    surface, invalid rows +inf: f32 when `exact`, else bf16 rounded from
+    the f32 value.
+
+    CUDA tensors on the current device launch K4 (fp32 FMA at every width:
+    it rounds neither queries nor codes, so its f32 surface is within
+    surface_delta of an exact evaluation); CPU tensors take the plain
+    version."""
+    global surface_launches
+    _check_scan_args(queries, codes, norms, valid, bits, 1)
+    if not _cuda_device(codes):
+        return score_surface_plain(queries, codes, norms, valid, bits=bits,
+                                   metric=metric, exact=exact)
+    q = queries.shape[0]
+    n, w = codes.shape
+    qx, qn2, qsum, k_dims, scale, offset = _kernel_operands(
+        queries, codes, norms, valid, bits)
+    out = torch.empty((q, n), device=codes.device,
+                      dtype=torch.float32 if exact else torch.bfloat16)
+    fn = cuda_build.entry("surface", "surface_launch", _SCAN_ENTRY_ARGTYPES)
+    rc = fn(qx.data_ptr(), codes.data_ptr(), norms.data_ptr(),
+            valid.data_ptr(), qn2.data_ptr(), qsum.data_ptr(), out.data_ptr(),
+            q, n, k_dims, w, 32 if bits == 64 else bits,
+            int(metric != "euclidean"), scale, offset, int(not exact),
+            cuda_build.launch_stream(codes.device))
+    cuda_build.check(rc, "surface")
+    surface_launches += 1
     return out
 
 
@@ -333,4 +445,133 @@ def fused_scan_topk(queries, codes, norms, valid, *, bits: int, metric: str,
         None if delta is None else delta[a:a + chunk], bits=bits,
         metric=metric, k=k, seg=seg, s=s, with_ties=with_ties)
         for a in range(0, q0, chunk)]
+    return tuple(torch.cat(p, dim=0) for p in zip(*parts))
+
+
+# ---------------------------------------------------------------------------
+# Non-fused selection over K4's surface
+# ---------------------------------------------------------------------------
+
+# device working set of one surface_topk query chunk: a quarter for the
+# candidates' gather and rerank pieces, the rest for the selection
+SURFACE_BUDGET_BYTES = 4 << 30
+
+
+# torch.topk on CUDA sorts whole rows (values and int64 indices, 24 more
+# bytes a row) when it is given this many rows or fewer, each of 100k
+# entries or more; past it, its radix select keeps no copy of the input
+TOPK_SORT_SLICES = 10
+
+
+def surface_query_bytes(n_rows: int, n_cand: int, sorts: bool = True) -> int:
+    """Selection bytes one query adds to a surface_topk chunk: its (N,) f32
+    surface row (and, when torch.topk sorts, 24 bytes a row more), plus its
+    n_cand selected candidates (topk's values and indices, the reranked
+    distance and surrogate, sort_topk's argsorts and gathers: 64 bytes
+    each).  The candidates' codes are gathered and reranked in pieces
+    outside this (rerank_piece)."""
+    return (28 if sorts else 4) * n_rows + 64 * n_cand
+
+
+def surface_chunk(n_queries: int, n_rows: int, n_cand: int,
+                  budget_bytes: int = SURFACE_BUDGET_BYTES) -> int:
+    """Queries per surface_topk chunk: as many as the selection's share of
+    the budget holds (at least one), rounded down to whole 128-query
+    kernel tiles above one tile."""
+    share = budget_bytes - budget_bytes // 4
+    chunk = min(n_queries, max(1, share // surface_query_bytes(
+        n_rows, n_cand, sorts=False)))
+    if chunk <= TOPK_SORT_SLICES:
+        chunk = min(chunk, max(1, share // surface_query_bytes(n_rows,
+                                                               n_cand)))
+    elif chunk > 128:
+        chunk -= chunk % 128
+    return chunk
+
+
+def rerank_piece(n_queries: int, dims: int,
+                 budget_bytes: int = SURFACE_BUDGET_BYTES) -> int:
+    """Candidates per query in one gather-and-rerank piece: codes of up to
+    4 bytes a value decoded to f32, with the 4-bit nibble planes'
+    intermediates (12 bytes a dim), and 32 bytes of rows, norms, validity,
+    dots and distances, within a quarter of the budget."""
+    return max(1, (budget_bytes // 4) // (n_queries * (12 * dims + 32)))
+
+
+def _rerank_rows(queries, cand, codes, norms, valid, *, bits: int,
+                 metric: str, piece: int):
+    """(dist, surrogate) of each query's candidate rows (Q, C) by the fused
+    rerank's formula, gathered and reranked `piece` candidates at a
+    time."""
+    nq, c = cand.shape
+    dist = torch.empty((nq, c), dtype=torch.float32, device=codes.device)
+    surr = torch.empty_like(dist)
+    for a in range(0, c, piece):
+        idx = cand[:, a:a + piece]
+        flat = idx.reshape(-1)
+        ccodes = codes.index_select(0, flat).reshape(
+            tuple(idx.shape) + tuple(codes.shape[1:]))
+        dist[:, a:a + piece], surr[:, a:a + piece] = _candidate_distances(
+            queries, ccodes, norms.index_select(0, flat).reshape(idx.shape),
+            valid.index_select(0, flat).reshape(idx.shape), bits, metric)
+    return dist, surr
+
+
+def surface_topk(queries, codes, norms, valid, *, bits: int, metric: str,
+                 k: int, margin: int,
+                 budget_bytes: int = SURFACE_BUDGET_BYTES):
+    """Exhaustive top-k at any (k, Q) -> (dist (Q, kk) ascending, rows
+    (Q, kk), ok (Q,) int32), kk = min(k, N), ties ordered by row.
+
+    Per query chunk (surface_chunk), the S = kk + margin smallest entries
+    of K4's f32 surface are selected with torch.topk, their distances
+    recomputed by the fused rerank's own formula (_candidate_distances) and
+    the kk best kept, so a row's distance is the same whichever route found
+    it.  The flag proves the cut as the fused scan's does: every true
+    top-kk row w has surface(w) <= kth_exact + delta (kth_exact = the kk-th
+    smallest reranked surrogate among the S), and every row left out has a
+    surface value no smaller than the largest selected one, s_max; so
+    s_max > kth_exact + 1.1*delta (or s_max = +inf: only invalid rows were
+    left out) means none was missed.  S >= N selects every row (complete by
+    construction).  Where ok == 0 the caller re-dispatches with a wider
+    margin.  Invalid rows come back at +inf when fewer than kk rows are
+    valid."""
+    q0, d = queries.shape
+    n = codes.shape[0]
+    kk = min(k, n)
+    s = min(kk + max(margin, 0), n)
+    queries = queries.to(torch.float32)
+    qn2 = queries.square().sum(dim=-1)
+    delta = surface_delta(qn2, norms, valid, metric=metric, dims=d)
+    chunk = surface_chunk(q0, n, s, budget_bytes)
+    piece = rerank_piece(chunk, d, budget_bytes)
+    parts = []
+    for a in range(0, q0, chunk):
+        qc = queries[a:a + chunk]
+        nq = qc.shape[0]
+        if s >= n:
+            cand = torch.arange(n, device=codes.device).expand(nq, n)
+        else:
+            surf = score_surface(qc, codes, norms, valid, bits=bits,
+                                 metric=metric, exact=True)
+            top = torch.topk(surf, s, dim=1, largest=False, sorted=False)
+            del surf
+            cand = top.indices
+            s_max = top.values.amax(dim=1)
+            del top
+        dist, surr = _rerank_rows(qc, cand, codes, norms, valid, bits=bits,
+                                  metric=metric, piece=piece)
+        if s >= n:
+            ok = torch.ones((nq,), dtype=torch.int32, device=codes.device)
+        else:
+            kth_exact = torch.kthvalue(surr, kk, dim=1).values
+            ok = ((s_max > kth_exact + 1.1 * delta[a:a + chunk])
+                  | torch.isinf(s_max))
+            if metric != "euclidean":
+                # a zero cosine query scores every row at exactly 1.0: any
+                # kk rows are the true top-kk
+                ok = ok | (qn2[a:a + chunk] == 0.0)
+            ok = ok.to(torch.int32)
+        del surr
+        parts.append(dist_ops.sort_topk(dist, cand, kk) + (ok,))
     return tuple(torch.cat(p, dim=0) for p in zip(*parts))

@@ -234,10 +234,6 @@ def test_unported_modes_raise(tmp_path):
         device="cpu")
     c.add_document(1, [0.1, 0.2, 0.3, 0.4], b"{}")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        c.search(tdb.SearchArgs(vector=[0.1] * 4, radius=0.5))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        c.search(tdb.SearchArgs(vector=[0.1] * 4, k=1, filter_query="a == 1"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
         c.use_mesh(None)
     c.close()
 

@@ -5,10 +5,12 @@ on a GPU machine without JAX it runs as
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 
-Tolerances: K1's segment minima must lie within the completeness flag's
-own error bound (surface_delta: the f32 accumulation cushion, as K1 rounds
-neither queries nor codes) of an f64 evaluation of the same formula; K2's
-integer counts must match exactly."""
+Tolerances: the segment minima of K1/K5/K6 and K4's f32 surface must lie
+within the completeness flag's own error bound (surface_delta: the f32
+accumulation cushion, as the kernels round neither queries nor codes) of
+an f64 evaluation of the same formula, with identical +inf positions; K4's
+bf16 surface within that bound plus half a bf16 ulp of the value; K2's and
+K3's integer counts must match exactly."""
 
 import numpy as np
 import pytest
@@ -63,6 +65,86 @@ def test_segmin_kernel_matches_plain(cuda, bits, metric, n, d, q):
     err = (got.double() - want).abs()
     bound = delta.double()[:, None].expand_as(err)
     assert (err[fin] <= bound[fin]).all()
+
+
+def _within_delta(got, want, tq, tn, tv, metric, d, extra=None):
+    """got (kernel) against want (plain, f64): identical +inf positions,
+    finite errors within surface_delta (+ `extra`, elementwise)."""
+    delta = scan.surface_delta(tq.square().sum(-1), tn, tv, metric=metric,
+                               dims=d)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    fin = torch.isfinite(want)
+    err = (got.double() - want).abs()
+    bound = delta.double()[:, None].expand_as(err)
+    if extra is not None:
+        bound = bound + extra
+    assert (err[fin] <= bound[fin]).all()
+
+
+@pytest.mark.parametrize("seg", [16, 64, 128])
+@pytest.mark.parametrize("bits", [4, 8, 16, 64])
+@pytest.mark.parametrize("n,d,q", [(4096, 384, 130), (1152, 33, 3)])
+def test_free_seg_segmin_kernel_matches_plain(cuda, bits, seg, n, d, q):
+    metric = "cosine" if bits in (8, 64) else "euclidean"
+    queries, codes, norms, valid = _corpus(bits, n, d, q, seed=seg)
+    tq, tc, tn, tv = (torch.from_numpy(a).to(cuda)
+                      for a in (queries, codes, norms, valid))
+    before = (scan.launches, scan.free_seg_launches)
+    got = scan.segment_min_scan(tq, tc, tn, tv, bits=bits, metric=metric,
+                                seg=seg)
+    assert (scan.launches, scan.free_seg_launches) == \
+        (before[0], before[1] + 1)
+    want = scan.segment_min_scan_plain(tq, tc, tn, tv, bits=bits,
+                                       metric=metric, seg=seg,
+                                       dtype=torch.float64)
+    _within_delta(got, want, tq, tn, tv, metric, d)
+    with pytest.raises(ValueError, match="16, 32, 64, 128"):
+        scan.segment_min_scan(tq, tc, tn, tv, bits=bits, metric=metric,
+                              seg=48 if n % 48 == 0 else 8)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+@pytest.mark.parametrize("bits", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("n,d,q", [(4096, 384, 130), (1000, 33, 3)])
+def test_surface_kernel_matches_plain(cuda, bits, metric, exact, n, d, q):
+    queries, codes, norms, valid = _corpus(bits, n, d, q, seed=bits + 1)
+    tq, tc, tn, tv = (torch.from_numpy(a).to(cuda)
+                      for a in (queries, codes, norms, valid))
+    before = scan.surface_launches
+    got = scan.score_surface(tq, tc, tn, tv, bits=bits, metric=metric,
+                             exact=exact)
+    assert scan.surface_launches == before + 1
+    assert got.dtype == (torch.float32 if exact else torch.bfloat16)
+    want = scan.score_surface_plain(tq, tc, tn, tv, bits=bits, metric=metric,
+                                    dtype=torch.float64)
+    half_ulp = None
+    if not exact:
+        # half an ulp at the larger magnitude (the two may straddle a
+        # power of 2)
+        fin = torch.isfinite(want)
+        a = torch.where(fin, torch.maximum(want.abs(), got.double().abs()),
+                        torch.ones_like(want))
+        half_ulp = torch.where(a > 0, torch.exp2(torch.floor(torch.log2(
+            a.clamp_min(1e-30))) - 8), torch.zeros_like(a))
+    _within_delta(got.float(), want, tq, tn, tv, metric, d, half_ulp)
+
+
+@pytest.mark.parametrize("words", [5, 8])
+def test_hamming_u8_kernel_bit_exact(cuda, words):
+    rng = np.random.default_rng(words + 10)
+    n, q = 5000, 40
+    qc = rng.integers(0, 2**32, size=(q, words), dtype=np.uint32)
+    h = rng.integers(0, 2**32, size=(n, words), dtype=np.uint32)
+    h[0] = ~qc[0]  # 32 * words: wraps to 0 at W = 8
+    args = [torch.from_numpy(a).to(cuda) for a in
+            (qc.view(np.int32), h.view(np.int32))]
+    before = hamming_scan.u8_launches
+    got = hamming_scan.hamming_scores_u8(*args)
+    assert hamming_scan.u8_launches == before + 1
+    assert got.dtype == torch.uint8
+    assert torch.equal(got, hamming_scan.hamming_scores_u8_plain(*args))
+    assert int(got[0, 0]) == (32 * words) % 256
 
 
 @pytest.mark.parametrize("words", [1, 5, 7])
@@ -150,3 +232,53 @@ def test_cuda_scatter_filter_and_large_k_match_cpu(cuda, tmp_path,
         c.close()
     assert out["cpu"][0][0] == 7000
     assert out["cpu"] == out["cuda"]
+
+
+def test_cuda_radius_and_filters_match_cpu(cuda, tmp_path, monkeypatch):
+    """Radius (fused at kk = 1024, then the K4 branch for a 72-query group
+    and a 1024+ row radius) and query-string filters on the GPU placement
+    give the CPU placement's results."""
+    monkeypatch.setattr(tcoll, "HOST_SCAN_MAX_ELEMS", 0)
+    rng = np.random.default_rng(12)
+    vecs = rng.uniform(-1, 1, size=(3000, 16))
+    queries = rng.uniform(-1, 1, size=(72, 16))
+    radii = [0.3] * 72
+    radii[5] = 0.48
+    out, medium = {}, {}
+    for dev in ("cpu", "cuda"):
+        c = tdb.Collection(tdb.CollectionOptions(
+            name=str(tmp_path / f"{dev}.dat"), distance_method=tdb.COSINE,
+            dimension_count=16, quantization=8, index_seed=5), device=dev)
+        c.add_documents(list(range(3000)), vecs,
+                        [b'{"i": %d}' % i for i in range(3000)])
+        surf0 = scan.surface_launches
+        got = []
+        for p in ("high", "exact", "medium"):
+            sets = [sorted(r.id for r in res.results) for res in
+                    c.radius_many([tdb.SearchArgs(vector=q, radius=r,
+                                                  precision=p)
+                                   for q, r in zip(queries, radii)])]
+            if p == "medium":
+                medium[dev] = sets
+            else:
+                got += sets
+        got += [[r.id for r in c.search(tdb.SearchArgs(
+            vector=queries[1], k=10, filter_query="i < 1500",
+            precision=p)).results] for p in ("high", "exact")]
+        got += [sorted(r.id for r in c.search(tdb.SearchArgs(
+            vector=queries[5], radius=0.48, filter_query="i >= 2000",
+            precision="high")).results)]
+        got += [[r.id for r in c.search(tdb.SearchArgs(
+            filter_query="i >= 2990", limit=5)).results]]
+        if dev == "cuda":
+            assert scan.surface_launches > surf0
+        out[dev] = got
+        c.close()
+    assert len(out["cpu"][5]) > 1024
+    assert out["cpu"] == out["cuda"]
+    # medium's sketch candidates are a torch.topk over integer Hamming
+    # counts, whose ties at the budget boundary the CPU and CUDA topk break
+    # differently: the id sets must overlap, not match
+    pairs = [(set(a), set(b)) for a, b in zip(medium["cpu"], medium["cuda"])]
+    assert sum(len(a & b) for a, b in pairs) >= \
+        0.98 * sum(len(a | b) for a, b in pairs)

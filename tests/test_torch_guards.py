@@ -129,7 +129,10 @@ def test_fp32_products_never_ride_tf32(monkeypatch):
         q = torch.from_numpy(np.float32(db[:3]))
         c, n = torch.from_numpy(codes), torch.from_numpy(norms)
         v = torch.ones(256, dtype=torch.bool)
-        tdist.score_block(q, c, n, v, bits, "cosine")
+        tscan.score_surface(q, c, n, v, bits=bits, metric="cosine",
+                            exact=True)
+        tscan.surface_topk(q, c, n, v, bits=bits, metric="cosine", k=3,
+                           margin=8)
         tscan.fused_scan_topk(q, c, n, v, bits=bits, metric="euclidean",
                               k=3, with_ties=True)
     idx = tham.SignHashIndex(15, "cosine", tdb.MyRandom(3))

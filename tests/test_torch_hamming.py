@@ -1,7 +1,10 @@
 """The port's sketch index and Hamming surface (syzgydb_tpu_torch/index/
 hamming.py, ops/hamming_scan.py) against the JAX package's.
 
-Sketch bits and Hamming counts are integers: both compare bit for bit.
+Sketch bits and Hamming counts are integers: both compare bit for bit,
+the f32 surface of K2 (hamming_scores) and the uint8 surface of K3
+(hamming_scores_u8, which wraps a count of 256 to 0 as the JAX function's
+uint8 cast does).
 Candidate SETS are not compared — the JAX package selects with
 approx_min_k (recall_target 0.95) where the port takes an exact topk — so
 the selection is held to recall instead."""
@@ -12,6 +15,7 @@ import pytest
 import torch
 
 from syzgydb_tpu.index import hamming as jham
+from syzgydb_tpu.ops import distance as jdist
 from syzgydb_tpu.ops import pallas_hamming as jph
 from syzgydb_tpu.utils.rng import MyRandom as JRandom
 from syzgydb_tpu_torch.index import hamming as tham
@@ -81,6 +85,36 @@ def test_plain_hamming_matches_jax_kernel(words):
     assert got[1, 4] == 32 * words or not valid[4]
 
 
+@pytest.mark.parametrize("words", [5, 8])
+def test_plain_u8_hamming_matches_jax_kernel(words):
+    rng = np.random.default_rng(17)
+    q, n = 6, 2048
+    qcodes = rng.integers(0, 2**32, size=(q, words), dtype=np.uint32)
+    hashes = rng.integers(0, 2**32, size=(n, words), dtype=np.uint32)
+    hashes[3] = qcodes[0]   # distance 0
+    hashes[4] = ~qcodes[1]  # distance 32 * words: 256 at W = 8
+    hashes[5] = ~qcodes[2]
+    hashes[5, 0] ^= 1       # distance 32 * words - 1: 255 at W = 8
+    want = np.asarray(jph.hamming_scores(
+        jnp.asarray(qcodes), jnp.asarray(hashes), words=words, block_n=512,
+        interpret=True))
+    got = hamming_scan.hamming_scores_u8(
+        torch.from_numpy(qcodes.view(np.int32)),
+        torch.from_numpy(hashes.view(np.int32)))
+    assert got.dtype == torch.uint8 and want.dtype == np.uint8
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert got[0, 3] == 0
+    assert int(got[1, 4]) == (32 * words) % 256
+    assert int(got[2, 5]) == 32 * words - 1
+    # below the wrap, K3 is K2's count with no mask
+    if words < 8:
+        ones = torch.ones(n, dtype=torch.bool)
+        np.testing.assert_array_equal(
+            got.numpy().astype(np.float32), hamming_scan.hamming_scores(
+                torch.from_numpy(qcodes.view(np.int32)),
+                torch.from_numpy(hashes.view(np.int32)), ones).numpy())
+
+
 def test_hamming_wrapper_rejects_bad_input():
     qc = torch.zeros((2, 5), dtype=torch.int32)
     h = torch.zeros((8, 5), dtype=torch.int32)
@@ -91,6 +125,10 @@ def test_hamming_wrapper_rejects_bad_input():
                                     torch.ones(8, dtype=bool))
     with pytest.raises(ValueError):
         hamming_scan.hamming_scores(qc, h, torch.ones(7, dtype=bool))
+    with pytest.raises(ValueError):
+        hamming_scan.hamming_scores_u8(qc, h[:, :4])
+    with pytest.raises(TypeError):
+        hamming_scan.hamming_scores_u8(qc, h.to(torch.int16))
 
 
 def test_candidates_and_rerank_recall_vs_jax():
@@ -134,9 +172,11 @@ def test_candidates_and_rerank_recall_vs_jax():
                                    "cosine", k, with_counts=True)
     assert (cnt <= budget).all() and (cnt > 0).all()
 
-    exact = tdist.score_block(tq, torch.from_numpy(codes),
-                              torch.from_numpy(norms), tv, 8, "cosine")
-    _, truth = tdist.top_k_smallest(exact, k)
+    exact = jdist.score_block(jnp.asarray(queries), jnp.asarray(codes),
+                              jnp.asarray(norms), jnp.asarray(valid), 8,
+                              "cosine", exact=True)
+    truth = np.asarray(jdist.top_k_smallest(exact, k)[1])
+    exact = np.asarray(exact)
 
     def recall(rows):
         return np.mean([len(set(rows[i]) & set(truth[i].tolist())) / k
@@ -148,4 +188,4 @@ def test_candidates_and_rerank_recall_vs_jax():
     # rows it returns, up to f32 summation order (~1e-7 on the cosine,
     # which acos at these angles amplifies about 2x)
     np.testing.assert_allclose(
-        td.numpy(), torch.gather(exact, 1, tr).numpy(), atol=1e-6)
+        td.numpy(), np.take_along_axis(exact, tr.numpy(), 1), atol=1e-6)

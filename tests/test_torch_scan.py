@@ -19,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from syzgydb_tpu.ops import distance as jdist
 from syzgydb_tpu.ops import pallas_scan as jscan
 from syzgydb_tpu_torch.ops import distance as tdist
 from syzgydb_tpu_torch.ops import scan as tscan
@@ -71,6 +72,15 @@ def _delta(queries, norms, valid, bits, metric, reference: bool):
         jnp.asarray(norms), jnp.asarray(valid), bits=jax_bits, metric=metric,
         dims=d, eps=jscan.surface_accum_eps(d),
         dc_rel=jscan._CODE_SPLIT_REL if bits in (32, 64) else 0.0))[:, None]
+
+
+def _jax_full_topk(queries, codes, norms, valid, bits, metric, k):
+    """The JAX package's exact (HIGHEST-precision f32) full distance
+    matrix and its top-k: (dist, rows) as numpy."""
+    full = jdist.score_block(jnp.asarray(queries), jnp.asarray(codes),
+                             jnp.asarray(norms), jnp.asarray(valid),
+                             32 if bits == 64 else bits, metric, exact=True)
+    return [np.asarray(o) for o in jdist.top_k_smallest(full, k)]
 
 
 def _assert_within(got, want, tol):
@@ -161,9 +171,7 @@ def test_fused_scan_topk_matches_jax(bits, metric, exact):
     real = np.flatnonzero(np.any(queries != 0.0, axis=1))
     # where the port's flag holds on a real query (a zero query ties every
     # row), its rows are the true top-k
-    full = tdist.score_block(*_torch(queries, codes, norms, valid), bits,
-                             metric)
-    _, want_r = tdist.top_k_smallest(full, k)
+    _, want_r = _jax_full_topk(queries, codes, norms, valid, bits, metric, k)
     for i in np.intersect1d(real, np.flatnonzero(pok)):
         assert set(pr[i].tolist()) == set(want_r[i].tolist())
     for i in real:
@@ -234,11 +242,10 @@ def test_full_gather_is_complete():
     d, r, ok = _port_fused(queries, codes, norms, valid, 8, "euclidean", 5,
                            tie_margin=1 << 30)
     assert ok.tolist() == [1, 1, 1]
-    full = tdist.score_block(*_torch(queries, codes, norms, valid), 8,
-                             "euclidean")
-    want_d, want_r = tdist.top_k_smallest(full, 5)
-    np.testing.assert_allclose(d, want_d.numpy(), rtol=1e-6)
-    np.testing.assert_array_equal(r, want_r.numpy())
+    want_d, want_r = _jax_full_topk(queries, codes, norms, valid, 8,
+                                    "euclidean", 5)
+    np.testing.assert_allclose(d, want_d, rtol=1e-6)
+    np.testing.assert_array_equal(r, want_r)
 
 
 def test_kernel_wrapper_rejects_bad_input():
