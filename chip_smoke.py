@@ -12,11 +12,14 @@ JAX or of the JAX package.  Phases, each of which fails the run:
      each kernel against its plain PyTorch version on the card, at 65,536
      rows x 384 dims (383 at 4-bit) with zero and invalid rows: K1
      (segment min, seg 32) at Q in {64, 1024}, every width, both metrics,
-     and K5/K6 (the same kernel at seg 16, 64, 128) at every width, within
-     the completeness flag's own error bound of an f64 evaluation; K4 (the
-     full surface) f32 and bf16 at every width and both metrics, within
-     that bound (bf16: plus half an ulp); K2 (Hamming, f32) and K3
-     (Hamming, uint8, wrapping at 256) bit for bit.
+     and K5/K6 (the fp32 kernel at seg 16, 64, 128) at every width, within
+     the completeness flag's own error bound of an f64 evaluation (for
+     K1's 8-bit int8 route with its query-slicing error dq_rel, and also
+     within 4 f32 ulps of the surrogate's terms of an f64 evaluation on
+     its sliced queries q_hat); K4 (the full surface) f32 and bf16 at
+     every width and both metrics, within that bound (bf16: plus half an
+     ulp); K2 (Hamming, f32) and K3 (Hamming, uint8, wrapping at 256) bit
+     for bit.
   3. main path: a 1,000,000 x 384 cosine 8-bit collection of clustered unit
      vectors made from a seed, ingested through Collection.add_documents
      with metadata {"i": n}, queried with search_many at precision high
@@ -28,10 +31,14 @@ JAX or of the JAX package.  Phases, each of which fails the run:
      and a selective filter), a filtered radius search, and the ops entry
      points of K5/K6 (fused_scan_topk at seg 64) and K3 on the collection's
      state.  Results are held against an independent fp64 oracle on the
-     card, and every kernel's launch counter must rise.
+     card, and every kernel's launch counter must rise; every 8-bit high
+     and exact phase that scans must run K1's int8 route and never the
+     fp32 kernel at seg 32.
   4. kernels at the main path's shapes: all six on the ingested state held
      against their plain versions as in phase 2, then timed beside the
-     plain versions, a library call and their bounds on the H100;
+     plain versions, a library call and their bounds on the H100 (K1 at
+     Q = 1024, 64 and 8, beside its 3-slice int8 floor and the fp32
+     kernel at Q = 1024);
      end-to-end ms per batch and QPS; the first filter mask's build time;
      the radius group's device transient against core/capacity.py's
      estimate.
@@ -57,6 +64,7 @@ import torch
 # H100 SXM data-sheet peaks (dense): bytes/s and the rates bounds use
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 CUDA_CORE_OPS = 67e12  # 32-bit CUDA-core rate (fp32 FMA issue rate)
 
 N_ROWS, DIMS, K = 1_000_000, 384, 10
@@ -108,17 +116,20 @@ def wall_ms(fn, reps: int) -> list[float]:
 # phase 2: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-def segmin_error(got, want, qn2, norms, valid, metric, dims, what):
+def segmin_error(got, want, qn2, norms, valid, metric, dims, what,
+                 dq_rel=None):
     """K1's segment minima against the plain version in f64: identical
     +inf positions and every finite error within the completeness flag's
-    own bound (surface_delta).  Returns (max |err|, max err/bound)."""
+    own bound (surface_delta, with the int8 route's dq_rel where given).
+    Returns (max |err|, max err/bound)."""
     from syzgydb_tpu_torch.ops import scan
 
     torch.cuda.synchronize()
     if not torch.equal(torch.isinf(got), torch.isinf(want)):
         raise AssertionError(f"K1 +inf positions differ: {what}")
-    delta = scan.surface_delta(qn2, norms, valid, metric=metric,
-                               dims=dims).to(torch.float64)[:, None]
+    delta = scan.surface_delta(qn2, norms, valid, metric=metric, dims=dims,
+                               dq_rel=dq_rel, bits=8
+                               ).to(torch.float64)[:, None]
     err = (got.double() - want).abs()
     err = torch.where(torch.isinf(want), torch.zeros_like(err), err)
     ratio = float((err / delta).max())
@@ -126,6 +137,42 @@ def segmin_error(got, want, qn2, norms, valid, metric, dims, what):
         raise AssertionError(f"K1 off its plain version by {ratio:.3g} x "
                              f"delta: {what}")
     return float(err.max()), ratio
+
+
+def i8_checks(got, tq, codes, norms, valid, metric, dims, what):
+    """K1's int8 route (8-bit codes) held both ways: within surface_delta
+    (with slice_queries' dq_rel) of the f64 plain version on the unrounded
+    queries, and within 4 f32 ulps of the surrogate's terms
+    (i8_term_scale) of the f64 plain version on the sliced queries q_hat
+    with the unrounded |q|^2 and sum; identical +inf positions.  Returns
+    (max |err| vs the unrounded queries, max err/delta, max err/ulp
+    bound)."""
+    from syzgydb_tpu_torch.ops import scan
+
+    qn2 = tq.square().sum(-1)
+    slices, scale, dq_rel = scan.slice_queries(tq)
+    want = scan.segment_min_scan_plain(tq, codes, norms, valid, bits=8,
+                                       metric=metric, dtype=torch.float64)
+    err, ratio = segmin_error(got, want, qn2, norms, valid, metric, dims,
+                              what, dq_rel=dq_rel)
+    del want
+    qhat = scan.unslice_queries(slices, scale)[:, :dims]
+    tight = scan.segment_min_scan_plain(qhat, codes, norms, valid, bits=8,
+                                        metric=metric, dtype=torch.float64,
+                                        query_terms=(qn2, tq.sum(-1)))
+    if not torch.equal(torch.isinf(got), torch.isinf(tight)):
+        raise AssertionError(f"K1 int8 +inf positions differ on q_hat: "
+                             f"{what}")
+    tol = 4 * 2.0 ** -24 * scan.i8_term_scale(
+        qn2, norms, valid, metric=metric, dims=dims).double()[:, None]
+    fin = torch.isfinite(tight)
+    e = torch.where(fin, (got.double() - tight).abs(),
+                    torch.zeros_like(tight))
+    ulp_ratio = float((e / tol).max())
+    if ulp_ratio > 1.0:
+        raise AssertionError(f"K1 int8 route off the f64 evaluation on "
+                             f"q_hat by {ulp_ratio:.3g} x 4 ulps: {what}")
+    return err, ratio, ulp_ratio
 
 
 def half_ulp_bf16(x):
@@ -173,6 +220,7 @@ def check_kernels(dev, n: int = 65536, batches=(64, 1024)) -> dict:
 
     rng = np.random.default_rng(2024)
     seg_err, seg_ratio, runs = 0.0, 0.0, 0
+    i8_runs, i8_ulp = 0, 0.0
     free_err, free_ratio, free_runs = 0.0, 0.0, 0
     surf_err, surf_ratio, surf_runs = 0.0, 0.0, 0
     for bits in (4, 8, 16, 32, 64):
@@ -194,13 +242,21 @@ def check_kernels(dev, n: int = 65536, batches=(64, 1024)) -> dict:
             tq = torch.from_numpy(qv).to(dev)
             qn2 = tq.square().sum(-1)
             for metric in ("euclidean", "cosine"):
-                want = scan.segment_min_scan_plain(
-                    tq, tc, tn, tv, bits=bits, metric=metric,
-                    dtype=torch.float64)
                 got = scan.segment_min_scan(tq, tc, tn, tv, bits=bits,
                                             metric=metric)
-                err, ratio = segmin_error(got, want, qn2, tn, tv, metric, d,
-                                          f"{bits}-bit {metric} Q={q}")
+                what = f"{bits}-bit {metric} Q={q}"
+                if bits == 8:  # K1's int8 route
+                    err, ratio, ulps = i8_checks(got, tq, tc, tn, tv,
+                                                 metric, d, what)
+                    i8_ulp = max(i8_ulp, ulps)
+                    i8_runs += 1
+                else:
+                    want = scan.segment_min_scan_plain(
+                        tq, tc, tn, tv, bits=bits, metric=metric,
+                        dtype=torch.float64)
+                    err, ratio = segmin_error(got, want, qn2, tn, tv,
+                                              metric, d, what)
+                    del want
                 seg_err = max(seg_err, err)
                 seg_ratio = max(seg_ratio, ratio)
                 runs += 1
@@ -238,7 +294,9 @@ def check_kernels(dev, n: int = 65536, batches=(64, 1024)) -> dict:
             del want, got
         del tc, tn, tv
     log(f"K1: {runs} configurations within delta of f64 "
-        f"(max |err| {seg_err:.3g}, max err/delta {seg_ratio:.3g})")
+        f"(max |err| {seg_err:.3g}, max err/delta {seg_ratio:.3g}); the "
+        f"{i8_runs} 8-bit ones (int8 route) also within 4 ulps on q_hat "
+        f"(max err/bound {i8_ulp:.3g})")
     log(f"K5/K6 (seg 16/64/128): {free_runs} configurations within delta "
         f"of f64 (max |err| {free_err:.3g}, max err/delta "
         f"{free_ratio:.3g})")
@@ -280,7 +338,8 @@ def check_kernels(dev, n: int = 65536, batches=(64, 1024)) -> dict:
                                  f"TPU kernel's uint8 cast")
     log("K3: bit-exact against its plain version (the W=8 wrap included)")
     return {"segmin": seg_err, "hamming": ham_err, "free_seg": free_err,
-            "surface": surf_err, "hamming_u8": float(u8_err)}
+            "surface": surf_err, "hamming_u8": float(u8_err),
+            "segmin_i8_ulp_ratio": i8_ulp}
 
 
 # ---------------------------------------------------------------------------
@@ -400,11 +459,13 @@ def main_path(dev, report: dict):
     # every kernel's count starts at 0 here and is read after the last
     # phase; the oracle between phases launches none of them
     scan.launches = scan.free_seg_launches = scan.surface_launches = 0
+    scan.i8_launches = 0
     hamming_scan.launches = hamming_scan.u8_launches = 0
     counts = {}
 
     def counters():
-        return {"segmin": scan.launches, "hamming": hamming_scan.launches,
+        return {"segmin": scan.launches, "segmin_i8": scan.i8_launches,
+                "hamming": hamming_scan.launches,
                 "hamming_u8": hamming_scan.u8_launches,
                 "surface": scan.surface_launches,
                 "segmin_free_seg": scan.free_seg_launches}
@@ -524,6 +585,20 @@ def main_path(dev, report: dict):
     if min(launches.values()) == 0:
         raise AssertionError(f"a kernel was not launched on the main path: "
                              f"{launches}")
+    # every 8-bit high/exact phase that scans runs K1's int8 route, and
+    # the fp32 kernel at seg 32 nowhere on the (8-bit) main path;
+    # radius_many batch 128 scans with K4 alone from its first dispatch
+    for name in ("high_first_batch1024", "exact_8x8", "radius_high_batch8",
+                 "radius_exact_batch8", "filter_high_batch1024_broad",
+                 "filter_high_batch1024_narrow", "filter_radius_high_batch8"):
+        c = counts[name]
+        if c["segmin_i8_launches"] == 0 or \
+                c["segmin_launches"] != c["segmin_i8_launches"]:
+            raise AssertionError(f"{name}: K1's int8 route not taken "
+                                 f"({c})")
+    if launches["segmin"] != launches["segmin_i8"]:
+        raise AssertionError(f"the fp32 kernel ran at seg 32 on the 8-bit "
+                             f"main path: {launches}")
     k4 = sum(counts[n]["surface_launches"] for n in (
         "radius_high_batch8", "radius_many_batch128"))
     if k4 == 0 or counts["radius_many_batch128"]["surface_launches"] == 0:
@@ -757,38 +832,48 @@ def kernel_times(coll, state, tq, dev) -> dict:
 
     codes, norms, valid = state["codes"], state["norms"], state["valid"]
     n, d = codes.shape
-    out = {"segmin_max_abs_err": 0.0, "segmin_max_err_over_bound": 0.0}
+    out = {"segmin_max_abs_err": 0.0, "segmin_max_err_over_bound": 0.0,
+           "segmin_max_err_over_ulp_bound": 0.0}
+    cb = codes.to(torch.bfloat16)
     for q in (1024, 64, 8):
         qq = tq[:q].contiguous()
         got = scan.segment_min_scan(qq, codes, norms, valid, bits=8,
                                     metric="cosine")
-        want = scan.segment_min_scan_plain(qq, codes, norms, valid, bits=8,
-                                           metric="cosine",
-                                           dtype=torch.float64)
-        err, ratio = segmin_error(got, want, qq.square().sum(-1), norms,
-                                  valid, "cosine", d, f"main path Q={q}")
-        del got, want
+        err, ratio, ulps = i8_checks(got, qq, codes, norms, valid, "cosine",
+                                     d, f"main path Q={q}")
+        del got
         out["segmin_max_abs_err"] = max(out["segmin_max_abs_err"], err)
         out["segmin_max_err_over_bound"] = max(
             out["segmin_max_err_over_bound"], ratio)
-        ms = cuda_ms(lambda: scan.segment_min_scan(
-            qq, codes, norms, valid, bits=8, metric="cosine"), reps=5)
+        out["segmin_max_err_over_ulp_bound"] = max(
+            out["segmin_max_err_over_ulp_bound"], ulps)
+        # the bound as the table defines it (bf16 tensor rate or bytes),
+        # and the 3-slice int8 floor beside it
         ops = 2.0 * q * n * d
-        nbytes = n * d + 5 * n + 4 * q * d + 4 * q * (n // 32)
+        qb = qq.to(torch.bfloat16)
         out[f"segmin_q{q}"] = {
-            "ms": ms, "bound_ms": max(ops / BF16_FLOPS,
-                                      nbytes / HBM_BYTES_S) * 1e3,
-            "bound_by": "operations" if ops / BF16_FLOPS >
-            nbytes / HBM_BYTES_S else "bytes"}
+            "ms": cuda_ms(lambda: scan.segment_min_scan(
+                qq, codes, norms, valid, bits=8, metric="cosine"), reps=5),
+            "slice_ms": cuda_ms(lambda: scan.slice_queries(qq), reps=5),
+            "plain_ms": cuda_ms(lambda: scan.segment_min_scan_plain(
+                qq, codes, norms, valid, bits=8, metric="cosine"), reps=3),
+            "library_ms": cuda_ms(lambda: qb @ cb.T, reps=5),
+            "int8_floor_ms": scan.I8_SLICES * ops / INT8_OPS * 1e3,
+            **bound(ops, n * d + 5 * n + 4 * q * d + 4 * q * (n // 32))}
+    # the fp32 kernel (K1 before its int8 route) on the same inputs
+    out["segmin_q1024"]["fp32_kernel_ms"] = cuda_ms(
+        lambda: scan.segmin_fp32(tq, codes, norms, valid, bits=8,
+                                 metric="cosine", seg=32), reps=3)
     log(f"K1 at the main path's shapes: within delta of f64 (max |err| "
         f"{out['segmin_max_abs_err']:.3g}, max err/delta "
-        f"{out['segmin_max_err_over_bound']:.3g})")
-    out["segmin_q1024"]["plain_ms"] = cuda_ms(
-        lambda: scan.segment_min_scan_plain(tq, codes, norms, valid, bits=8,
-                                            metric="cosine"), reps=3)
-    qb = tq.to(torch.bfloat16)
-    cb = codes.to(torch.bfloat16)
-    out["segmin_q1024"]["library_ms"] = cuda_ms(lambda: qb @ cb.T, reps=5)
+        f"{out['segmin_max_err_over_bound']:.3g}) and within 4 ulps on "
+        f"q_hat (max err/bound {out['segmin_max_err_over_ulp_bound']:.3g})")
+    log("K1 ms (int8 route, slicing included): " + ", ".join(
+        f"Q={q} {out[f'segmin_q{q}']['ms']:.4f} (slicing "
+        f"{out[f'segmin_q{q}']['slice_ms']:.4f}, int8 floor "
+        f"{out[f'segmin_q{q}']['int8_floor_ms']:.4f}, bound "
+        f"{out[f'segmin_q{q}']['bound_ms']:.4f})" for q in (1024, 64, 8)) +
+        f"; fp32 kernel Q=1024 {out['segmin_q1024']['fp32_kernel_ms']:.3f}")
     del cb
 
     qcode = torch.from_numpy(coll.index.encode_np(
@@ -945,21 +1030,13 @@ def main() -> int:
 
     free_err = max(errs["free_seg"], times["segmin_seg64_max_abs_err"])
     kernels = [
-        {"name": "segmin", "route": "cuda",
-         "source": "syzgydb_tpu_torch/csrc/segmin.cu",
-         "replaces": "syzgydb_tpu/ops/pallas_scan.py:416",
-         "launches": launches["segmin"],
-         "max_abs_err": max(errs["segmin"], times["segmin_max_abs_err"]),
-         "ms": seg["ms"], "plain_ms": seg["plain_ms"],
-         "bound_ms": seg["bound_ms"], "bound_by": seg["bound_by"],
-         "library_ms": seg["library_ms"]},
-        {"name": "hamming", "route": "cuda",
-         "source": "syzgydb_tpu_torch/csrc/hamming.cu",
-         "replaces": "syzgydb_tpu/ops/pallas_hamming.py:42",
-         "launches": launches["hamming"], "max_abs_err": errs["hamming"],
-         "ms": ham["ms"], "plain_ms": ham["plain_ms"],
-         "bound_ms": ham["bound_ms"], "bound_by": ham["bound_by"],
-         "library_ms": None},
+        # K1 on the main path (8-bit codes, seg 32) is the int8 route
+        row("segmin", "segmin_i8.cu", "syzgydb_tpu/ops/pallas_scan.py:416",
+            launches["segmin_i8"],
+            max(errs["segmin"], times["segmin_max_abs_err"]), seg,
+            seg["library_ms"]),
+        row("hamming", "hamming.cu", "syzgydb_tpu/ops/pallas_hamming.py:42",
+            launches["hamming"], errs["hamming"], ham, None),
         row("hamming_u8", "hamming.cu",
             "syzgydb_tpu/ops/pallas_hamming.py:27", launches["hamming_u8"],
             max(errs["hamming_u8"], times["hamming_u8_max_abs_err"]), ham8,

@@ -20,7 +20,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
-SOURCES = ("segmin", "hamming", "surface")
+SOURCES = ("segmin", "segmin_i8", "hamming", "surface")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -1,13 +1,14 @@
-"""Exhaustive scans: the wrappers of kernels K1/K5/K6 (``csrc/segmin.cu``)
-and K4 (``csrc/surface.cu``), their plain PyTorch versions, and the
-provable select-and-rerank stage — the port of
+"""Exhaustive scans: the wrappers of kernels K1 (``csrc/segmin_i8.cu`` for
+8-bit codes, ``csrc/segmin.cu`` for the other widths), K5/K6
+(``csrc/segmin.cu``) and K4 (``csrc/surface.cu``), their plain PyTorch
+versions, and the provable select-and-rerank stage — the port of
 ``syzgydb_tpu/ops/pallas_scan.py``.
 
 Two phases, as in the JAX package:
 
   1. **Kernel K1** streams the codes once and writes, per query, the
      minimum surrogate distance of every SEG-row segment: a (Q, N/SEG) f32
-     surface instead of the (Q, N) distance matrix.  The same kernel at
+     surface instead of the (Q, N) distance matrix.  The fp32 kernel at
      SEG in {16, 64, 128} is the port of the archived TPU layouts K5/K6.
   2. **Select and rerank**: the S = k + margin best segments are gathered
      contiguously and reranked in full fp32; a per-query flag proves that
@@ -29,7 +30,10 @@ segment-interleaved transposed operand, no 128-lane slab and no lean
 placement.  K1 reads the row-major (N, W) codes, and its minima are f32 at
 every width, so the f32-surface tie margin (6) applies to high and exact
 alike.  A CUDA tensor launches the kernel (or raises); a CPU tensor runs
-the plain version.
+the plain version.  The 8-bit K1 route multiplies int8 slices of the query
+(slice_queries) on tensor cores, so its surface also carries the slicing
+error dq_rel, which the flag's bound (surface_delta) takes wherever that
+route ran.
 """
 
 from __future__ import annotations
@@ -79,9 +83,16 @@ GATHER_BUDGET_BYTES = 1 << 30
 KERNEL_SEGS = (16, 32, 64, 128)
 
 # plain-integer launch counters (reset by callers)
-launches = 0            # K1: segment-min kernel at DEFAULT_SEG
-free_seg_launches = 0   # K5/K6: the same kernel at another segment length
+launches = 0            # K1: segment-min kernel at DEFAULT_SEG, either route
+i8_launches = 0         # K1's int8 tensor-core route (8-bit codes)
+free_seg_launches = 0   # K5/K6: the fp32 kernel at another segment length
 surface_launches = 0    # K4: full surface kernel
+
+# K1's int8 route: query slices (the S csrc/segmin_i8.cu is built for),
+# and the widest D whose int32 slice sums cannot overflow
+# (|sum| <= 127 * 128 * Kp < 2^31)
+I8_SLICES = 3
+I8_MAX_DIMS = 1 << 17
 
 _CODE_DTYPES = {4: torch.uint8, 8: torch.int8, 16: torch.int16,
                 32: torch.float32, 64: torch.float32}
@@ -115,25 +126,34 @@ def _surrogate_plain(qx, qn2, qsum, codes, norms, valid, *, bits: int,
     return torch.where(valid[None, :], s, torch.full_like(s, np.inf))
 
 
-def _plain_blocks(queries, seg: int, dtype, block_rows: int):
+def _plain_blocks(queries, seg: int, dtype, block_rows: int,
+                  query_terms=None):
     """(qx, qn2, qsum, step) for a plain version walking the rows in blocks
-    of whole segments (the blocks bound the (Q, block) transients)."""
+    of whole segments (the blocks bound the (Q, block) transients).
+    `query_terms` = (qn2, qsum) replaces the queries' own."""
     qx = queries.to(dtype)
-    qn2 = qx.square().sum(dim=-1, keepdim=True)
-    qsum = qx.sum(dim=-1, keepdim=True)
+    if query_terms is None:
+        qn2 = qx.square().sum(dim=-1, keepdim=True)
+        qsum = qx.sum(dim=-1, keepdim=True)
+    else:
+        qn2, qsum = (t.to(dtype)[:, None] for t in query_terms)
     return qx, qn2, qsum, max(seg, block_rows // seg * seg)
 
 
 def segment_min_scan_plain(queries, codes, norms, valid, *, bits: int,
                            metric: str, seg: int = DEFAULT_SEG,
-                           dtype=torch.float32, block_rows: int = 1 << 17):
+                           dtype=torch.float32, block_rows: int = 1 << 17,
+                           query_terms=None):
     """Plain version of K1/K5/K6 in `dtype` (float32, or float64 as an
     exact reference): one full-precision product of the decoded codes per
     row block, the surrogate epilogue, and a reshape-min over each
-    segment."""
+    segment.  `query_terms` = (qn2 (Q,), qsum (Q,)) stand in for those of
+    `queries`: evaluated on the int8 route's q_hat with the unrounded
+    query's terms, this is that route's arithmetic done exactly."""
     q, d = queries.shape
     n = codes.shape[0]
-    qx, qn2, qsum, step = _plain_blocks(queries, seg, dtype, block_rows)
+    qx, qn2, qsum, step = _plain_blocks(queries, seg, dtype, block_rows,
+                                        query_terms)
     out = torch.empty((q, n // seg), dtype=dtype, device=codes.device)
     for a in range(0, n, step):
         s = _surrogate_plain(qx, qn2, qsum, codes[a:a + step],
@@ -224,19 +244,119 @@ def _cuda_device(codes) -> bool:
     return True
 
 
-def segment_min_scan(queries, codes, norms, valid, *, bits: int, metric: str,
-                     seg: int = DEFAULT_SEG):
-    """(Q, D) f32 queries x (N, W) codes -> (Q, N/seg) f32 segment minima of
-    the surrogate distance, invalid rows +inf, in original segment order.
+def slice_queries(queries):
+    """(Q, D) f32 queries -> (slices int8 (S, Q, Kp), scale f32 (Q,),
+    dq_rel f32 (Q,)): the int8 route's query operand.
 
-    CUDA tensors on the current device launch the segment-min kernel (fp32
-    FMA at every width; K1 at seg 32, the K5/K6 port at seg 16, 64 or 128);
-    CPU tensors take the plain version at any seg."""
+    q_hat = scale * (a_0 + a_1 2^-7 + a_2 2^-14) with a_s the slices
+    (S = I8_SLICES) and Kp = D rounded up to 32, the pad dims zero.  The
+    scale is a power of two with max|q_i| / scale <= 127, so |a_0| <= 127;
+    each later slice is the round-to-nearest remainder (at most half a
+    unit) times 2^7, so |a_s| <= 64 (times 2^8 a half-unit remainder would
+    give +128, which int8 lacks).  Every step is exact (done in f64), q_hat
+    has at most 22 significant bits and is exact in f32, and dq_rel =
+    ||q - q_hat|| / ||q|| (0 for a zero query) is evaluated in f64 and
+    rounded up to f32.  Runs on the queries' device."""
+    q = queries.to(torch.float32).to(torch.float64)
+    nq, d = q.shape
+    kp = -(-d // 32) * 32
+    m = q.abs().amax(dim=1) if d else q.new_zeros(nq)
+    _, e = torch.frexp(m)  # m = f * 2^e, f in [0.5, 1); e = 0 for m = 0
+    # 2^(e - 7) > m / 128, built from its bits (exact), kept f32-normal
+    e = (e.to(torch.int64) - 7).clamp_min(-126)
+    scale = ((e + 1023) << 52).view(torch.float64)
+    scale = torch.where(m > 127.0 * scale, 2.0 * scale, scale)
+    r = q / scale[:, None]
+    parts = []
+    for _ in range(I8_SLICES):
+        a = torch.round(r)
+        parts.append(a)
+        r = (r - a) * 128.0
+    slices = torch.stack(parts).to(torch.int8)
+    if kp != d:
+        slices = torch.nn.functional.pad(slices, (0, kp - d))
+    # q - q_hat = scale * r * 2^(-7 S), r the last remainder
+    num = r.square().sum(dim=1) * (scale * 2.0 ** (-7 * I8_SLICES)).square()
+    den = q.square().sum(dim=1)
+    dq = torch.where(den > 0.0, torch.sqrt(num / torch.where(
+        den > 0.0, den, torch.ones_like(den))), torch.zeros_like(den))
+    dq32 = dq.to(torch.float32)
+    dq32 = torch.where(dq32.to(torch.float64) < dq, torch.nextafter(
+        dq32, torch.full_like(dq32, np.inf)), dq32)
+    return slices.contiguous(), scale.to(torch.float32), dq32
+
+
+def unslice_queries(slices, scale):
+    """q_hat (Q, K) in f64 (exact) from slice_queries' (S, Q, K) slices and
+    (Q,) scale."""
+    s = slices.to(torch.float64)
+    qhat = s[0]
+    for i in range(1, s.shape[0]):
+        qhat = qhat + s[i] * 2.0 ** (-7 * i)
+    return qhat * scale.to(torch.float64)[:, None]
+
+
+def i8_term_scale(qn2, norms, valid, *, metric: str, dims: int):
+    """Per-query T such that every f32 rounding of the int8 route's epilogue
+    (the raw dot, the f32 affine constants, the products and sums,
+    rsqrtf's 2 ulps) errs by at most one f32 ulp of a term bounded by T:
+    the route lies within 4 * 2^-24 * T of an exact evaluation of the same
+    formula on q_hat with the same qn2 and qsum (segment_min_scan_plain,
+    float64, query_terms).  Each term is bounded through |q_hat . (v - off)|
+    + |off * qsum| <= |q| (|v| + 2 offd), offd = |offset| sqrt(D)."""
+    offd = abs(qz.affine_constants(8)[1]) * float(dims) ** 0.5
+    if metric == "euclidean":
+        vmax = torch.where(valid, norms, torch.zeros_like(norms)).max()
+        return qn2 + 4.0 * qn2.sqrt() * (vmax.sqrt() + 2.0 * offd) + vmax
+    live = valid & (norms > 0.0)
+    vmin = torch.where(live, norms, torch.full_like(norms, np.inf)).min()
+    return torch.full_like(qn2, 1.25) + \
+        2.0 * offd * torch.rsqrt(vmin.clamp_min(1e-30))
+
+
+# segmin_i8_launch: eight pointers (slices, qscale, codes, norms, valid,
+# qn2, qsum, out), Q, N, D, Kp, cosine, scale, offset, vec, the stream
+_I8_ENTRY_ARGTYPES = [ctypes.c_void_p] * 8 + [
+    ctypes.c_int, ctypes.c_long, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+
+
+def _segmin_i8(queries, codes, norms, valid, *, metric: str):
+    """K1's int8 tensor-core route (csrc/segmin_i8.cu) on 8-bit codes at
+    seg 32 -> (segmins, dq_rel)."""
+    global launches, i8_launches
+    q, d = queries.shape
+    if d > I8_MAX_DIMS:
+        raise ValueError(f"D={d} exceeds the int8 route's {I8_MAX_DIMS} "
+                         f"dims (int32 slice sums could overflow)")
+    _, qn2, qsum, _, scale, offset = _kernel_operands(queries, codes, norms,
+                                                      valid, 8)
+    slices, qscale, dq_rel = slice_queries(queries)
+    n = codes.shape[0]
+    out = torch.empty((q, n // DEFAULT_SEG), dtype=torch.float32,
+                      device=codes.device)
+    # the kernel copies a segment's norms and validity 16 bytes at a time
+    norms, valid = (t if t.data_ptr() % 16 == 0 else t.clone()
+                    for t in (norms, valid))
+    # code copy width: 16-byte cp.async where every row start allows it
+    ptr = codes.data_ptr()
+    vec = next(v for v in (16, 4, 1) if d % v == 0 and ptr % v == 0)
+    fn = cuda_build.entry("segmin_i8", "segmin_i8_launch", _I8_ENTRY_ARGTYPES)
+    rc = fn(slices.data_ptr(), qscale.data_ptr(), ptr, norms.data_ptr(),
+            valid.data_ptr(), qn2.data_ptr(), qsum.data_ptr(), out.data_ptr(),
+            q, n, d, slices.shape[2], int(metric != "euclidean"), scale,
+            offset, vec, cuda_build.launch_stream(codes.device))
+    cuda_build.check(rc, "segmin_i8")
+    launches += 1
+    i8_launches += 1
+    return out, dq_rel
+
+
+def segmin_fp32(queries, codes, norms, valid, *, bits: int, metric: str,
+                seg: int):
+    """The fp32 segment-min kernel (csrc/segmin.cu) on CUDA tensors, at any
+    width and at seg 16, 32, 64 or 128."""
     global launches, free_seg_launches
-    _check_scan_args(queries, codes, norms, valid, bits, seg)
-    if not _cuda_device(codes):
-        return segment_min_scan_plain(queries, codes, norms, valid, bits=bits,
-                                      metric=metric, seg=seg)
     if seg not in KERNEL_SEGS:
         raise ValueError(f"the segment-min kernel is built for segments of "
                          f"{KERNEL_SEGS} rows, not {seg}")
@@ -257,6 +377,36 @@ def segment_min_scan(queries, codes, norms, valid, *, bits: int, metric: str,
     else:
         free_seg_launches += 1
     return out
+
+
+def _segment_min(queries, codes, norms, valid, *, bits: int, metric: str,
+                 seg: int):
+    """segment_min_scan -> (segmins, dq_rel): dq_rel is slice_queries'
+    (Q,) query-slicing error where the int8 route ran, else None."""
+    _check_scan_args(queries, codes, norms, valid, bits, seg)
+    if not _cuda_device(codes):
+        return segment_min_scan_plain(queries, codes, norms, valid, bits=bits,
+                                      metric=metric, seg=seg), None
+    if bits == 8 and seg == DEFAULT_SEG:
+        return _segmin_i8(queries, codes, norms, valid, metric=metric)
+    return segmin_fp32(queries, codes, norms, valid, bits=bits,
+                       metric=metric, seg=seg), None
+
+
+def segment_min_scan(queries, codes, norms, valid, *, bits: int, metric: str,
+                     seg: int = DEFAULT_SEG):
+    """(Q, D) f32 queries x (N, W) codes -> (Q, N/seg) f32 segment minima of
+    the surrogate distance, invalid rows +inf, in original segment order.
+
+    CUDA tensors on the current device launch a kernel, chosen by shape:
+    8-bit codes at seg 32 (every high/exact dispatch of an 8-bit
+    collection) take K1's int8 tensor-core route (csrc/segmin_i8.cu, the
+    queries split by slice_queries), whose error carries slice_queries'
+    dq_rel; every other width, and seg 16, 64 or 128 (the K5/K6 port),
+    takes the fp32 kernel (csrc/segmin.cu).  A failure of either raises.
+    CPU tensors take the plain version at any seg."""
+    return _segment_min(queries, codes, norms, valid, bits=bits,
+                        metric=metric, seg=seg)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -347,18 +497,38 @@ def surface_accum_eps(dims: int) -> float:
     return 2e-5 + 2.0 * dims * 2.0 ** -24
 
 
-def surface_delta(qn2, norms, valid, *, metric: str, dims: int):
+def surface_delta(qn2, norms, valid, *, metric: str, dims: int,
+                  dq_rel=None, bits=None):
     """Provable per-query bound (surrogate units) on K1's surface error.
 
-    K1 rounds neither queries nor codes (fp32 FMA over codes that are exact
-    in f32 at every width), so its error is the f32 accumulation cushion
+    The fp32 kernels round neither queries nor codes (codes are exact in
+    f32 at every width), so their error is the f32 accumulation cushion
     alone: the JAX package's bound with no query-rounding (dq_rel) and no
-    code-split (dc_rel) term, as its exact surface uses."""
+    code-split (dc_rel) term, as its exact surface uses.  The int8 route
+    takes exact integer products of the sliced query q_hat, so its bound is
+    the reference's form (pallas_scan.surface_delta) with slice_queries'
+    (Q,) `dq_rel` and dc_rel = 0 (8-bit codes are exact in int8): the
+    query-rounding term couples to v - offset*1 through the unrounded qsum,
+    |err| <= dq_rel ||q|| (||v|| + |offset| sqrt(D)), plus the cushion.
+    `bits` (the codes' width, for the offset) goes with `dq_rel`."""
     eps = surface_accum_eps(dims)
+    if dq_rel is None:
+        if metric == "euclidean":
+            vmax = torch.where(valid, norms, torch.zeros_like(norms)).max()
+            return eps * (qn2 + vmax)
+        return torch.full_like(qn2, eps)
+    if bits is None:
+        raise ValueError("surface_delta: dq_rel needs the codes' bits")
+    off = abs(qz.affine_constants(bits)[1]) if bits in (4, 8, 16) else 0.0
+    offd = off * float(dims) ** 0.5
     if metric == "euclidean":
         vmax = torch.where(valid, norms, torch.zeros_like(norms)).max()
-        return eps * (qn2 + vmax)
-    return torch.full_like(qn2, eps)
+        return 2.0 * dq_rel * qn2.sqrt() * (vmax.sqrt() + offd) + \
+            eps * (qn2 + vmax)
+    live = valid & (norms > 0.0)
+    vmin = torch.where(live, norms, torch.full_like(norms, np.inf)).min()
+    return 0.5 * dq_rel * (1.0 + offd * torch.rsqrt(vmin.clamp_min(1e-30))) \
+        + eps
 
 
 def _select_and_rerank(queries, segmins, codes, norms, valid, delta, *,
@@ -427,8 +597,8 @@ def fused_scan_topk(queries, codes, norms, valid, *, bits: int, metric: str,
     if not fused_k_ok(k, q0):
         raise ValueError(f"k={k} with {q0} queries exceeds the fused scan")
     queries = queries.to(torch.float32)
-    segmins = segment_min_scan(queries, codes, norms, valid, bits=bits,
-                               metric=metric, seg=seg)
+    segmins, dq_rel = _segment_min(queries, codes, norms, valid, bits=bits,
+                                   metric=metric, seg=seg)
     if tie_margin is None:
         tie_margin = default_tie_margin()
     nseg = norms.shape[0] // seg
@@ -437,8 +607,9 @@ def fused_scan_topk(queries, codes, norms, valid, *, bits: int, metric: str,
     sv = s if (full or not with_ties) else s + 1
     delta = None
     if with_ties and not full:
+        # the int8 route's surface carries its query-slicing error
         delta = surface_delta(queries.square().sum(dim=-1), norms, valid,
-                              metric=metric, dims=d)
+                              metric=metric, dims=d, dq_rel=dq_rel, bits=bits)
     chunk = max(1, gather_bytes // (4 * sv * seg * max(d, 1)))
     parts = [_select_and_rerank(
         queries[a:a + chunk], segmins[a:a + chunk], codes, norms, valid,

@@ -7,10 +7,14 @@ on a GPU machine without JAX it runs as
 
 Tolerances: the segment minima of K1/K5/K6 and K4's f32 surface must lie
 within the completeness flag's own error bound (surface_delta: the f32
-accumulation cushion, as the kernels round neither queries nor codes) of
-an f64 evaluation of the same formula, with identical +inf positions; K4's
-bf16 surface within that bound plus half a bf16 ulp of the value; K2's and
-K3's integer counts must match exactly."""
+accumulation cushion, as the fp32 kernels round neither queries nor codes,
+plus the query-slicing error dq_rel on K1's int8 route) of an f64
+evaluation of the same formula, with identical +inf positions; K1's int8
+route also within 4 f32 ulps of the surrogate's terms (i8_term_scale) of
+an f64 evaluation on its sliced queries q_hat, which a fault in the
+fragment layout would break; K4's bf16 surface within its bound plus half
+a bf16 ulp of the value; K2's and K3's integer counts must match
+exactly."""
 
 import numpy as np
 import pytest
@@ -32,7 +36,7 @@ def cuda():
     return torch.device("cuda")
 
 
-def _corpus(bits, n, d, q, seed):
+def _corpus(bits, n, d, q, seed, zero_query=True):
     rng = np.random.default_rng(seed)
     db = rng.uniform(-1, 1, size=(n, d))
     db[::97] = 0.0
@@ -42,7 +46,8 @@ def _corpus(bits, n, d, q, seed):
     valid = rng.random(n) > 0.05
     valid[64:96] = False
     queries = np.float32(rng.uniform(-1, 1, size=(q, d)))
-    queries[0] = 0.0
+    if zero_query:
+        queries[0] = 0.0
     return queries, codes, norms, valid
 
 
@@ -53,18 +58,64 @@ def test_segmin_kernel_matches_plain(cuda, bits, metric, n, d, q):
     queries, codes, norms, valid = _corpus(bits, n, d, q, seed=bits)
     tq, tc, tn, tv = (torch.from_numpy(a).to(cuda)
                       for a in (queries, codes, norms, valid))
-    before = scan.launches
+    before = (scan.launches, scan.i8_launches)
     got = scan.segment_min_scan(tq, tc, tn, tv, bits=bits, metric=metric)
-    assert scan.launches == before + 1
+    # 8-bit codes at seg 32 take the int8 route, the rest the fp32 kernel
+    assert (scan.launches, scan.i8_launches) == \
+        (before[0] + 1, before[1] + (bits == 8))
     want = scan.segment_min_scan_plain(tq, tc, tn, tv, bits=bits,
                                        metric=metric, dtype=torch.float64)
+    dq_rel = scan.slice_queries(tq)[2] if bits == 8 else None
     delta = scan.surface_delta(tq.square().sum(-1), tn, tv, metric=metric,
-                               dims=d)
+                               dims=d, dq_rel=dq_rel, bits=bits)
     assert torch.equal(torch.isinf(got), torch.isinf(want))
     fin = torch.isfinite(want)
     err = (got.double() - want).abs()
     bound = delta.double()[:, None].expand_as(err)
     assert (err[fin] <= bound[fin]).all()
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+@pytest.mark.parametrize("n,d,q,zero_query", [
+    (4096, 384, 130, True), (1056, 33, 3, True), (2048, 768, 17, True),
+    (4096, 100, 1, False), (4096, 100, 1, True), (4096, 48, 40, True),
+    # past the resident kernel's shared memory: the streamed-slice kernel
+    (2080, 800, 5, True), (1024, 1504, 70, True)])
+def test_i8_segmin_kernel_tight_on_q_hat(cuda, metric, n, d, q, zero_query):
+    """The int8 route against an f64 evaluation of the same formula on its
+    sliced queries q_hat with the unrounded |q|^2 and sum: within 4 f32
+    ulps of the surrogate's terms, identical +inf positions (invalid rows,
+    a wholly invalid segment; zero rows and a zero query ride along)."""
+    queries, codes, norms, valid = _corpus(8, n, d, q, seed=n + d + q,
+                                           zero_query=zero_query)
+    tq, tc, tn, tv = (torch.from_numpy(a).to(cuda)
+                      for a in (queries, codes, norms, valid))
+    before = scan.i8_launches
+    got = scan.segment_min_scan(tq, tc, tn, tv, bits=8, metric=metric)
+    assert scan.i8_launches == before + 1
+    slices, scale, _ = scan.slice_queries(tq)
+    qhat = scan.unslice_queries(slices, scale)[:, :d]
+    qn2 = tq.square().sum(-1)
+    want = scan.segment_min_scan_plain(qhat, tc, tn, tv, bits=8,
+                                       metric=metric, dtype=torch.float64,
+                                       query_terms=(qn2, tq.sum(-1)))
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    assert torch.isinf(got[:, 2]).all()  # rows 64..95: a wholly invalid segment
+    tol = 4 * 2.0 ** -24 * scan.i8_term_scale(qn2, tn, tv, metric=metric,
+                                              dims=d).double()[:, None]
+    fin = torch.isfinite(want)
+    err = (got.double() - want).abs()
+    assert (err[fin] <= tol.expand_as(err)[fin]).all()
+
+
+def test_i8_route_rejects_what_it_cannot_take(cuda):
+    n, d = 32, scan.I8_MAX_DIMS + 32  # int32 slice sums could overflow
+    args = (torch.zeros((1, d), device=cuda),
+            torch.zeros((n, d), dtype=torch.int8, device=cuda),
+            torch.zeros(n, device=cuda),
+            torch.ones(n, dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError, match="int8 route"):
+        scan.segment_min_scan(*args, bits=8, metric="cosine")
 
 
 def _within_delta(got, want, tq, tn, tv, metric, d, extra=None):
