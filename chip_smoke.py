@@ -12,14 +12,15 @@ JAX or of the JAX package.  Phases, each of which fails the run:
      each kernel against its plain PyTorch version on the card, at 65,536
      rows x 384 dims (383 at 4-bit) with zero and invalid rows: K1
      (segment min, seg 32) at Q in {64, 1024}, every width, both metrics,
-     and K5/K6 (the fp32 kernel at seg 16, 64, 128) at every width, within
-     the completeness flag's own error bound of an f64 evaluation (for
-     K1's 8-bit int8 route with its query-slicing error dq_rel, and also
-     within 4 f32 ulps of the surrogate's terms of an f64 evaluation on
-     its sliced queries q_hat); K4 (the full surface) f32 and bf16 at
-     every width and both metrics, within that bound (bf16: plus half an
-     ulp); K2 (Hamming, f32) and K3 (Hamming, uint8, wrapping at 256) bit
-     for bit.
+     K5/K6 (seg 16, 64, 128) and K4 (the full surface, f32 and bf16) at
+     every width, within the completeness flag's own error bound of an f64
+     evaluation (bf16: plus half an ulp).  On 8-bit codes all three run the
+     int8 route (csrc/segmin_i8.cu), held with its query-slicing error
+     dq_rel in that bound and also within 4 f32 ulps of the surrogate's
+     terms of an f64 evaluation on its sliced queries q_hat: K1 and K5/K6
+     at both metrics and Q in {64, 1024}, K4 at both metrics and Q in
+     {8, 128}.  K2 (Hamming, f32) and K3 (Hamming, uint8, wrapping at 256)
+     bit for bit.
   3. main path: a 1,000,000 x 384 cosine 8-bit collection of clustered unit
      vectors made from a seed, ingested through Collection.add_documents
      with metadata {"i": n}, queried with search_many at precision high
@@ -33,12 +34,15 @@ JAX or of the JAX package.  Phases, each of which fails the run:
      state.  Results are held against an independent fp64 oracle on the
      card, and every kernel's launch counter must rise; every 8-bit high
      and exact phase that scans must run K1's int8 route and never the
-     fp32 kernel at seg 32.
+     fp32 kernel at seg 32; both radius phases must run K4's int8 route,
+     the seg-64 ops phase K5/K6's, and the fp32 K4 and K5/K6 kernels must
+     launch nowhere.
   4. kernels at the main path's shapes: all six on the ingested state held
      against their plain versions as in phase 2, then timed beside the
      plain versions, a library call and their bounds on the H100 (K1 at
-     Q = 1024, 64 and 8, beside its 3-slice int8 floor and the fp32
-     kernel at Q = 1024);
+     Q = 1024, 64 and 8, K4 f32 at Q = 128 and 8, K5/K6 at seg 16, 64 and
+     128 and Q = 1024, each beside its 3-slice int8 floor, and the fp32
+     kernels of K1, K4 and K5/K6 at one shape each);
      end-to-end ms per batch and QPS; the first filter mask's build time;
      the radius group's device transient against core/capacity.py's
      estimate.
@@ -118,15 +122,16 @@ def wall_ms(fn, reps: int) -> list[float]:
 
 def segmin_error(got, want, qn2, norms, valid, metric, dims, what,
                  dq_rel=None):
-    """K1's segment minima against the plain version in f64: identical
-    +inf positions and every finite error within the completeness flag's
-    own bound (surface_delta, with the int8 route's dq_rel where given).
-    Returns (max |err|, max err/bound)."""
+    """Segment minima (K1, K5/K6) against the plain version in f64:
+    identical +inf positions and every finite error within the completeness
+    flag's own bound (surface_delta, with the int8 route's dq_rel where
+    given).  Returns (max |err|, max err/bound)."""
     from syzgydb_tpu_torch.ops import scan
 
     torch.cuda.synchronize()
     if not torch.equal(torch.isinf(got), torch.isinf(want)):
-        raise AssertionError(f"K1 +inf positions differ: {what}")
+        raise AssertionError(f"segment minima: +inf positions differ: "
+                             f"{what}")
     delta = scan.surface_delta(qn2, norms, valid, metric=metric, dims=dims,
                                dq_rel=dq_rel, bits=8
                                ).to(torch.float64)[:, None]
@@ -134,44 +139,62 @@ def segmin_error(got, want, qn2, norms, valid, metric, dims, what,
     err = torch.where(torch.isinf(want), torch.zeros_like(err), err)
     ratio = float((err / delta).max())
     if ratio > 1.0:
-        raise AssertionError(f"K1 off its plain version by {ratio:.3g} x "
-                             f"delta: {what}")
+        raise AssertionError(f"segment minima off the plain version by "
+                             f"{ratio:.3g} x delta: {what}")
     return float(err.max()), ratio
 
 
-def i8_checks(got, tq, codes, norms, valid, metric, dims, what):
-    """K1's int8 route (8-bit codes) held both ways: within surface_delta
-    (with slice_queries' dq_rel) of the f64 plain version on the unrounded
-    queries, and within 4 f32 ulps of the surrogate's terms
+def i8_checks(got, tq, codes, norms, valid, metric, dims, what,
+              seg=32, bf16=False):
+    """The int8 route (8-bit codes: K1 at seg 32, K5/K6 at seg 16/64/128,
+    K4's surface for seg=None, bf16 or f32) held both ways: within
+    surface_delta (with slice_queries' dq_rel) of the f64 plain version on
+    the unrounded queries, and within 4 f32 ulps of the surrogate's terms
     (i8_term_scale) of the f64 plain version on the sliced queries q_hat
-    with the unrounded |q|^2 and sum; identical +inf positions.  Returns
-    (max |err| vs the unrounded queries, max err/delta, max err/ulp
-    bound)."""
+    with the unrounded |q|^2 and sum; identical +inf positions; bf16 plus
+    half an ulp of the value each way.  Returns (max |err| vs the unrounded
+    queries, max err/delta, max err/ulp bound)."""
     from syzgydb_tpu_torch.ops import scan
+
+    def plain(q, terms=None):
+        if seg is None:
+            return scan.score_surface_plain(q, codes, norms, valid, bits=8,
+                                            metric=metric,
+                                            dtype=torch.float64,
+                                            query_terms=terms)
+        return scan.segment_min_scan_plain(q, codes, norms, valid, bits=8,
+                                           metric=metric, seg=seg,
+                                           dtype=torch.float64,
+                                           query_terms=terms)
 
     qn2 = tq.square().sum(-1)
     slices, scale, dq_rel = scan.slice_queries(tq)
-    want = scan.segment_min_scan_plain(tq, codes, norms, valid, bits=8,
-                                       metric=metric, dtype=torch.float64)
-    err, ratio = segmin_error(got, want, qn2, norms, valid, metric, dims,
-                              what, dq_rel=dq_rel)
+    want = plain(tq)
+    if seg is None:
+        err, ratio = surface_error(got, want, qn2, norms, valid, metric, dims,
+                                   what, bf16, dq_rel=dq_rel)
+    else:
+        err, ratio = segmin_error(got, want, qn2, norms, valid, metric, dims,
+                                  what, dq_rel=dq_rel)
     del want
     qhat = scan.unslice_queries(slices, scale)[:, :dims]
-    tight = scan.segment_min_scan_plain(qhat, codes, norms, valid, bits=8,
-                                        metric=metric, dtype=torch.float64,
-                                        query_terms=(qn2, tq.sum(-1)))
+    tight = plain(qhat, (qn2, tq.sum(-1)))
+    got = got.double()
     if not torch.equal(torch.isinf(got), torch.isinf(tight)):
-        raise AssertionError(f"K1 int8 +inf positions differ on q_hat: "
+        raise AssertionError(f"int8 route: +inf positions differ on q_hat: "
                              f"{what}")
     tol = 4 * 2.0 ** -24 * scan.i8_term_scale(
         qn2, norms, valid, metric=metric, dims=dims).double()[:, None]
     fin = torch.isfinite(tight)
-    e = torch.where(fin, (got.double() - tight).abs(),
-                    torch.zeros_like(tight))
+    zero = torch.zeros_like(tight)
+    e = torch.where(fin, (got - tight).abs(), zero)
+    if bf16:
+        tol = tol + half_ulp_bf16(torch.where(
+            fin, torch.maximum(tight.abs(), got.abs()), zero))
     ulp_ratio = float((e / tol).max())
     if ulp_ratio > 1.0:
-        raise AssertionError(f"K1 int8 route off the f64 evaluation on "
-                             f"q_hat by {ulp_ratio:.3g} x 4 ulps: {what}")
+        raise AssertionError(f"int8 route off the f64 evaluation on q_hat by "
+                             f"{ulp_ratio:.3g} x its ulp bound: {what}")
     return err, ratio, ulp_ratio
 
 
@@ -183,17 +206,19 @@ def half_ulp_bf16(x):
 
 
 def surface_error(got, want, qn2, norms, valid, metric, dims, what,
-                  bf16: bool):
+                  bf16: bool, dq_rel=None):
     """K4's surface against the plain version in f64: identical +inf
-    positions, every finite error within surface_delta (bf16: plus half an
-    ulp of the value).  Returns (max |err|, max err/bound)."""
+    positions, every finite error within surface_delta (with the int8
+    route's dq_rel where given; bf16: plus half an ulp of the value).
+    Returns (max |err|, max err/bound)."""
     from syzgydb_tpu_torch.ops import scan
 
     torch.cuda.synchronize()
     if not torch.equal(torch.isinf(got), torch.isinf(want)):
         raise AssertionError(f"K4 +inf positions differ: {what}")
-    bound = scan.surface_delta(qn2, norms, valid, metric=metric,
-                               dims=dims).to(torch.float64)[:, None]
+    bound = scan.surface_delta(qn2, norms, valid, metric=metric, dims=dims,
+                               dq_rel=dq_rel, bits=8
+                               ).to(torch.float64)[:, None]
     fin = torch.isfinite(want)
     zero = torch.zeros_like(want)
     want = torch.where(fin, want, zero)
@@ -212,6 +237,50 @@ def surface_error(got, want, qn2, norms, valid, metric, dims, what,
 def u8_abs_err(got, want) -> int:
     """Largest |got - want| of two uint8 count surfaces, taken in int32."""
     return int((got.to(torch.int32) - want.to(torch.int32)).abs().max())
+
+
+def i8_free_and_surface(tq_all: dict, tc, tn, tv, d: int) -> dict:
+    """The int8 route's K5/K6 (seg 16/64/128, both metrics, Q = 64 and
+    1024) and K4 (f32 and bf16, both metrics, Q = 8 and 128) on 8-bit
+    codes, each held by i8_checks."""
+    from syzgydb_tpu_torch.ops import scan
+
+    out = {"free_err": 0.0, "free_ratio": 0.0, "free_runs": 0,
+           "surf_err": 0.0, "surf_ratio": 0.0, "surf_runs": 0, "ulp": 0.0}
+    for q in (64, 1024):
+        tq = tq_all[q]
+        for seg in (16, 64, 128):
+            for metric in ("euclidean", "cosine"):
+                got = scan.segment_min_scan(tq, tc, tn, tv, bits=8,
+                                            metric=metric, seg=seg)
+                err, ratio, ulps = i8_checks(
+                    got, tq, tc, tn, tv, metric, d,
+                    f"seg {seg} 8-bit {metric} Q={q}", seg=seg)
+                out["free_err"] = max(out["free_err"], err)
+                out["free_ratio"] = max(out["free_ratio"], ratio)
+                out["ulp"] = max(out["ulp"], ulps)
+                out["free_runs"] += 1
+    tq = tq_all[1024]
+    for q in (8, 128):
+        qq = tq[:q].contiguous()
+        for metric in ("euclidean", "cosine"):
+            for exact in (True, False):
+                got = scan.score_surface(qq, tc, tn, tv, bits=8,
+                                         metric=metric, exact=exact)
+                err, ratio, ulps = i8_checks(
+                    got, qq, tc, tn, tv, metric, d,
+                    f"K4 8-bit {metric} Q={q} exact={exact}", seg=None,
+                    bf16=not exact)
+                # max |err| and the ulp ratio are the f32 surface's: the
+                # bf16 one adds its rounding (its bound, half an ulp, is
+                # met with ratios near 1 by construction)
+                if exact:
+                    out["surf_err"] = max(out["surf_err"], err)
+                    out["ulp"] = max(out["ulp"], ulps)
+                out["surf_ratio"] = max(out["surf_ratio"], ratio)
+                out["surf_runs"] += 1
+                del got
+    return out
 
 
 def check_kernels(dev, n: int = 65536, batches=(64, 1024)) -> dict:
@@ -233,13 +302,15 @@ def check_kernels(dev, n: int = 65536, batches=(64, 1024)) -> dict:
         valid = np.ones(n, dtype=bool)
         valid[rng.choice(n, 500, replace=False)] = False
         valid[32 * 5:32 * 6] = False  # one wholly invalid segment
+        valid[128 * 4:128 * 5] = False  # and one at every segment length
         tc = torch.from_numpy(codes).to(dev)
         tn = torch.from_numpy(norms).to(dev)
         tv = torch.from_numpy(valid).to(dev)
+        tq_all = {}
         for q in batches:
             qv = np.float32(rng.uniform(-1, 1, size=(q, d)))
             qv[0] = 0.0
-            tq = torch.from_numpy(qv).to(dev)
+            tq = tq_all[q] = torch.from_numpy(qv).to(dev)
             qn2 = tq.square().sum(-1)
             for metric in ("euclidean", "cosine"):
                 got = scan.segment_min_scan(tq, tc, tn, tv, bits=bits,
@@ -260,6 +331,18 @@ def check_kernels(dev, n: int = 65536, batches=(64, 1024)) -> dict:
                 seg_err = max(seg_err, err)
                 seg_ratio = max(seg_ratio, ratio)
                 runs += 1
+        if bits == 8:  # the int8 route: K5/K6 and K4 held both ways
+            i8 = i8_free_and_surface(tq_all, tc, tn, tv, d)
+            free_err, free_ratio = max(free_err, i8["free_err"]), max(
+                free_ratio, i8["free_ratio"])
+            surf_err, surf_ratio = max(surf_err, i8["surf_err"]), max(
+                surf_ratio, i8["surf_ratio"])
+            free_runs += i8["free_runs"]
+            surf_runs += i8["surf_runs"]
+            i8_ulp = max(i8_ulp, i8["ulp"])
+            i8_runs += i8["free_runs"] + i8["surf_runs"]
+            del tc, tn, tv
+            continue
         # K5/K6: the segment-min kernel at the other segment lengths
         tq = tq[:64].contiguous()
         qn2 = tq.square().sum(-1)
@@ -295,8 +378,8 @@ def check_kernels(dev, n: int = 65536, batches=(64, 1024)) -> dict:
         del tc, tn, tv
     log(f"K1: {runs} configurations within delta of f64 "
         f"(max |err| {seg_err:.3g}, max err/delta {seg_ratio:.3g}); the "
-        f"{i8_runs} 8-bit ones (int8 route) also within 4 ulps on q_hat "
-        f"(max err/bound {i8_ulp:.3g})")
+        f"{i8_runs} 8-bit K1, K5/K6 and K4 ones (int8 route) also within 4 "
+        f"ulps on q_hat (max err/bound {i8_ulp:.3g}, f32 outputs)")
     log(f"K5/K6 (seg 16/64/128): {free_runs} configurations within delta "
         f"of f64 (max |err| {free_err:.3g}, max err/delta "
         f"{free_ratio:.3g})")
@@ -459,7 +542,7 @@ def main_path(dev, report: dict):
     # every kernel's count starts at 0 here and is read after the last
     # phase; the oracle between phases launches none of them
     scan.launches = scan.free_seg_launches = scan.surface_launches = 0
-    scan.i8_launches = 0
+    scan.i8_launches = scan.i8_free_seg_launches = scan.i8_surface_launches = 0
     hamming_scan.launches = hamming_scan.u8_launches = 0
     counts = {}
 
@@ -468,7 +551,9 @@ def main_path(dev, report: dict):
                 "hamming": hamming_scan.launches,
                 "hamming_u8": hamming_scan.u8_launches,
                 "surface": scan.surface_launches,
-                "segmin_free_seg": scan.free_seg_launches}
+                "surface_i8": scan.i8_surface_launches,
+                "segmin_free_seg": scan.free_seg_launches,
+                "segmin_free_seg_i8": scan.i8_free_seg_launches}
 
     def phase(name, fn):
         c0 = counters()
@@ -599,11 +684,21 @@ def main_path(dev, report: dict):
     if launches["segmin"] != launches["segmin_i8"]:
         raise AssertionError(f"the fp32 kernel ran at seg 32 on the 8-bit "
                              f"main path: {launches}")
-    k4 = sum(counts[n]["surface_launches"] for n in (
-        "radius_high_batch8", "radius_many_batch128"))
-    if k4 == 0 or counts["radius_many_batch128"]["surface_launches"] == 0:
-        raise AssertionError("the radius phases did not reach the non-fused "
-                             "K4 branch")
+    # both radius phases reach the non-fused K4 branch on the int8 route,
+    # and the seg-64 ops phase runs K5/K6 on it; the fp32 K4 and K5/K6
+    # kernels launch nowhere on the 8-bit main path
+    for name in ("radius_high_batch8", "radius_many_batch128"):
+        if counts[name]["surface_i8_launches"] == 0:
+            raise AssertionError(f"{name}: K4's int8 route not taken "
+                                 f"({counts[name]})")
+    if counts["ops_fused_scan_seg64_batch1024"][
+            "segmin_free_seg_i8_launches"] == 0:
+        raise AssertionError("the seg-64 ops phase did not run K5/K6's int8 "
+                             "route")
+    if launches["surface"] != launches["surface_i8"] or \
+            launches["segmin_free_seg"] != launches["segmin_free_seg_i8"]:
+        raise AssertionError(f"the fp32 K4 or K5/K6 kernel ran on the 8-bit "
+                             f"main path: {launches}")
 
     est = capacity.search_transient(coll.columns.capacity)
     report["radius_many_transient"] = {"measured_bytes": transient,
@@ -792,23 +887,32 @@ def profile_batches(coll, batches) -> dict:
             fn()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t0) * 1000.0
-        kern = {}
+        kern, host, launched = {}, {}, 0
         for e in prof.key_averages():
             if "CUDA" not in str(getattr(e, "device_type", "")):
+                # host ops and CUDA runtime calls, by their own time
+                host[e.key[:80]] = host.get(e.key[:80], 0.0) + \
+                    e.self_cpu_time_total / 1000.0
                 continue
             t = getattr(e, "self_device_time_total",
                         getattr(e, "self_cuda_time_total", 0.0)) / 1000.0
             if t > 0:
                 kern[e.key[:80]] = kern.get(e.key[:80], 0.0) + t
+                launched += e.count
         busy = sum(kern.values())
         top = sorted(kern.items(), key=lambda kv: -kv[1])[:8]
+        top_host = sorted(host.items(), key=lambda kv: -kv[1])[:5]
         out[name] = {"wall_ms": wall,
                      "device_busy_ms": busy if kern else None,
                      "busy_share": busy / wall if kern else None,
-                     "top_kernels_ms": top}
-        log(f"profile {name}: wall {wall:.2f} ms, kernels {busy:.2f} ms")
+                     "device_ops": launched,
+                     "top_kernels_ms": top, "top_host_ms": top_host}
+        log(f"profile {name}: wall {wall:.2f} ms, kernels {busy:.2f} ms "
+            f"({launched} device ops)")
         for k, t in top:
             log(f"    {t:9.3f} ms  {k}")
+        for k, t in top_host:
+            log(f"    {t:9.3f} ms  host: {k}")
     return out
 
 
@@ -924,62 +1028,90 @@ def kernel_times(coll, state, tq, dev) -> dict:
                 CUDA_CORE_OPS)}
     log("K3 at the main path's shapes: bit-exact against its plain version")
 
-    # K4: the exact f32 surface at Q = 128 (the radius group's chunk), and
-    # its bf16 form
-    q = 128
-    qq = tq[:q].contiguous()
-    qn2 = qq.square().sum(-1)
-    want = scan.score_surface_plain(qq, codes, norms, valid, bits=8,
-                                    metric="cosine", dtype=torch.float64)
-    out["surface_max_abs_err"] = 0.0
-    for exact in (True, False):
-        got = scan.score_surface(qq, codes, norms, valid, bits=8,
-                                 metric="cosine", exact=exact)
-        err, ratio = surface_error(got, want, qn2, norms, valid, "cosine", d,
-                                   f"main path Q={q} exact={exact}",
-                                   not exact)
-        if exact:
-            out["surface_max_abs_err"] = err
-        del got
-    del want
-    log(f"K4 at the main path's shapes: within its bound of f64 (max |err| "
-        f"{out['surface_max_abs_err']:.3g})")
-    qb = qq.to(torch.bfloat16)
+    # K4 on the int8 route: the exact f32 surface at Q = 128 (the radius
+    # group's chunk) and Q = 8 (radius high's escalation), held both ways
+    # with its bf16 form at Q = 128, then timed
+    out["surface_max_abs_err"] = out["surface_max_err_over_ulp_bound"] = 0.0
     cb = codes.to(torch.bfloat16)
-    out["surface_q128"] = {
-        "ms": cuda_ms(lambda: scan.score_surface(
-            qq, codes, norms, valid, bits=8, metric="cosine", exact=True),
-            reps=5),
-        "plain_ms": cuda_ms(lambda: scan.score_surface_plain(
-            qq, codes, norms, valid, bits=8, metric="cosine", exact=True),
-            reps=3),
-        "library_ms": cuda_ms(lambda: qb @ cb.T, reps=5),
-        **bound(2.0 * q * n * d, n * d + 5 * n + 4 * q * d + 4 * q * n)}
+    for q, forms in ((128, (True, False)), (8, (True,))):
+        qq = tq[:q].contiguous()
+        for exact in forms:
+            got = scan.score_surface(qq, codes, norms, valid, bits=8,
+                                     metric="cosine", exact=exact)
+            err, _, ulps = i8_checks(got, qq, codes, norms, valid, "cosine",
+                                     d, f"main path K4 Q={q} exact={exact}",
+                                     seg=None, bf16=not exact)
+            del got
+            if exact:  # the f32 surface's (see i8_free_and_surface)
+                out["surface_max_abs_err"] = max(out["surface_max_abs_err"],
+                                                 err)
+                out["surface_max_err_over_ulp_bound"] = max(
+                    out["surface_max_err_over_ulp_bound"], ulps)
+        ops = 2.0 * q * n * d
+        qb = qq.to(torch.bfloat16)
+        out[f"surface_q{q}"] = {
+            "ms": cuda_ms(lambda: scan.score_surface(
+                qq, codes, norms, valid, bits=8, metric="cosine",
+                exact=True), reps=5),
+            "plain_ms": cuda_ms(lambda: scan.score_surface_plain(
+                qq, codes, norms, valid, bits=8, metric="cosine",
+                exact=True), reps=3),
+            "library_ms": cuda_ms(lambda: qb @ cb.T, reps=5),
+            "int8_floor_ms": scan.I8_SLICES * ops / INT8_OPS * 1e3,
+            **bound(ops, n * d + 5 * n + 4 * q * d + 4 * q * n)}
+    # the fp32 kernel (K4 before its int8 route) on the same inputs
+    out["surface_q128"]["fp32_kernel_ms"] = cuda_ms(
+        lambda: scan.surface_fp32(tq[:128], codes, norms, valid, bits=8,
+                                  metric="cosine", exact=True), reps=3)
+    log(f"K4 at the main path's shapes: within delta of f64 (max |err| "
+        f"{out['surface_max_abs_err']:.3g}) and within 4 ulps on q_hat (max "
+        f"err/bound {out['surface_max_err_over_ulp_bound']:.3g}); ms " +
+        ", ".join(f"Q={q} {out[f'surface_q{q}']['ms']:.4f} (int8 floor "
+                  f"{out[f'surface_q{q}']['int8_floor_ms']:.4f}, bound "
+                  f"{out[f'surface_q{q}']['bound_ms']:.4f})"
+                  for q in (128, 8)) +
+        f"; fp32 kernel Q=128 {out['surface_q128']['fp32_kernel_ms']:.3f}")
 
-    # K5/K6: the segment-min kernel at seg 64, Q = 1024
-    q, seg = 1024, 64
-    qn2 = tq.square().sum(-1)
-    got = scan.segment_min_scan(tq, codes, norms, valid, bits=8,
-                                metric="cosine", seg=seg)
-    want = scan.segment_min_scan_plain(tq, codes, norms, valid, bits=8,
-                                       metric="cosine", seg=seg,
-                                       dtype=torch.float64)
-    out["segmin_seg64_max_abs_err"], _ = segmin_error(
-        got, want, qn2, norms, valid, "cosine", d, f"main path seg {seg}")
-    del got, want
+    # K5/K6 on the int8 route: segment minima at seg 16, 64, 128, Q = 1024
+    q = 1024
+    ops = 2.0 * q * n * d
     qb = tq.to(torch.bfloat16)
-    out["segmin_seg64_q1024"] = {
-        "ms": cuda_ms(lambda: scan.segment_min_scan(
-            tq, codes, norms, valid, bits=8, metric="cosine", seg=seg),
-            reps=5),
-        "plain_ms": cuda_ms(lambda: scan.segment_min_scan_plain(
-            tq, codes, norms, valid, bits=8, metric="cosine", seg=seg),
-            reps=3),
-        "library_ms": cuda_ms(lambda: qb @ cb.T, reps=5),
-        **bound(2.0 * q * n * d,
-                n * d + 5 * n + 4 * q * d + 4 * q * (n // seg))}
+    library_ms = cuda_ms(lambda: qb @ cb.T, reps=5)
+    out["segmin_free_max_abs_err"] = 0.0
+    out["segmin_free_max_err_over_ulp_bound"] = 0.0
+    for seg in (16, 64, 128):
+        got = scan.segment_min_scan(tq, codes, norms, valid, bits=8,
+                                    metric="cosine", seg=seg)
+        err, _, ulps = i8_checks(got, tq, codes, norms, valid, "cosine", d,
+                                 f"main path seg {seg}", seg=seg)
+        del got
+        out["segmin_free_max_abs_err"] = max(out["segmin_free_max_abs_err"],
+                                             err)
+        out["segmin_free_max_err_over_ulp_bound"] = max(
+            out["segmin_free_max_err_over_ulp_bound"], ulps)
+        out[f"segmin_seg{seg}_q1024"] = {
+            "ms": cuda_ms(lambda: scan.segment_min_scan(
+                tq, codes, norms, valid, bits=8, metric="cosine", seg=seg),
+                reps=5),
+            "plain_ms": cuda_ms(lambda: scan.segment_min_scan_plain(
+                tq, codes, norms, valid, bits=8, metric="cosine", seg=seg),
+                reps=3),
+            "library_ms": library_ms,
+            "int8_floor_ms": scan.I8_SLICES * ops / INT8_OPS * 1e3,
+            **bound(ops, n * d + 5 * n + 4 * q * d + 4 * q * (n // seg))}
+    # the fp32 kernel (K5/K6 before their int8 route) at seg 64
+    out["segmin_seg64_q1024"]["fp32_kernel_ms"] = cuda_ms(
+        lambda: scan.segmin_fp32(tq, codes, norms, valid, bits=8,
+                                 metric="cosine", seg=64), reps=3)
     del cb
-    log("K5/K6 at the main path's shapes: within delta of f64")
+    log(f"K5/K6 at the main path's shapes: within delta of f64 (max |err| "
+        f"{out['segmin_free_max_abs_err']:.3g}) and within 4 ulps on q_hat "
+        f"(max err/bound {out['segmin_free_max_err_over_ulp_bound']:.3g}); "
+        f"ms Q=1024 " + ", ".join(
+            f"seg {seg} {out[f'segmin_seg{seg}_q1024']['ms']:.4f}"
+            for seg in (16, 64, 128)) +
+        f"; fp32 kernel seg 64 "
+        f"{out['segmin_seg64_q1024']['fp32_kernel_ms']:.3f}")
     return out
 
 
@@ -1028,7 +1160,7 @@ def main() -> int:
                 "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                 "library_ms": library}
 
-    free_err = max(errs["free_seg"], times["segmin_seg64_max_abs_err"])
+    free_err = max(errs["free_seg"], times["segmin_free_max_abs_err"])
     kernels = [
         # K1 on the main path (8-bit codes, seg 32) is the int8 route
         row("segmin", "segmin_i8.cu", "syzgydb_tpu/ops/pallas_scan.py:416",
@@ -1041,16 +1173,18 @@ def main() -> int:
             "syzgydb_tpu/ops/pallas_hamming.py:27", launches["hamming_u8"],
             max(errs["hamming_u8"], times["hamming_u8_max_abs_err"]), ham8,
             None),
-        row("surface", "surface.cu", "syzgydb_tpu/ops/pallas_scan.py:272",
+        # K4 and K5/K6 on the main path (8-bit codes) are the int8 route
+        row("surface", "segmin_i8.cu", "syzgydb_tpu/ops/pallas_scan.py:272",
             launches["surface"],
             max(errs["surface"], times["surface_max_abs_err"]), surf,
             surf["library_ms"]),
         # K5 and K6 are two TPU layouts of one function: one CUDA kernel
-        # (segmin.cu at seg != 32) and one launch count serve both rows
-        row("segmin_free_seg_transposed", "segmin.cu",
+        # (the SegMin epilogue at seg != 32) and one launch count serve both
+        # rows, timed at the main path's seg 64
+        row("segmin_free_seg_transposed", "segmin_i8.cu",
             "tools_dev/superseded_kernels.py:33",
             launches["segmin_free_seg"], free_err, free, free["library_ms"]),
-        row("segmin_free_seg_natural", "segmin.cu",
+        row("segmin_free_seg_natural", "segmin_i8.cu",
             "tools_dev/superseded_kernels.py:138",
             launches["segmin_free_seg"], free_err, free, free["library_ms"]),
     ]

@@ -1,12 +1,22 @@
-// K1 for 8-bit codes on int8 tensor cores: fused code-matmul + surrogate
-// epilogue + 32-row segment minimum, with exact integer products.
+// K1, K5/K6 and K4 for 8-bit codes on int8 tensor cores: one fused
+// code-matmul with exact integer products, the surrogate epilogue, and one
+// of three stores: segment minima at seg 32 (K1) or 16/64/128 (K5/K6), or
+// the full surface (K4).
 //
-// Replaces syzgydb_tpu/ops/pallas_scan.py::_segmin_ilv_kernel (K1, wrapper
-// segment_min_scan_ilv) for 8-bit codes at 32-row segments: for every query
-// q and every 32-row segment s it writes min over the segment's valid rows r
-// of scan_tile::surrogate (see segmin.cu), invalid rows +inf, as a (Q, N/32)
-// f32 surface in ORIGINAL segment order.  Other widths and segment lengths
-// stay on segmin.cu's fp32 kernel (ops/scan.py dispatches by shape).
+// Replaces, for 8-bit codes:
+//  - syzgydb_tpu/ops/pallas_scan.py::_segmin_ilv_kernel (K1, wrapper
+//    segment_min_scan_ilv) and tools_dev/superseded_kernels.py::
+//    _segmin_kernel / ::_segmin_nat_loop_kernel (K5/K6, wrappers
+//    segment_min_scan / segment_min_scan_nat): for every query q and every
+//    SEG-row segment s, min over the segment's valid rows r of
+//    scan_tile::surrogate (see segmin.cu), invalid rows +inf, as a
+//    (Q, N/SEG) f32 surface in ORIGINAL segment order (epilogue SegMin);
+//  - syzgydb_tpu/ops/pallas_scan.py::_surface_kernel (K4, wrapper
+//    score_surface): every (q, r) surrogate, invalid rows +inf, as a (Q, N)
+//    f32 surface or bf16 rounded to nearest from the same f32 value
+//    (epilogue Surface).
+// Other widths stay on segmin.cu and surface.cu's fp32 kernels
+// (ops/scan.py::_route dispatches by width).
 //
 // Arithmetic.  The codes are int8 in device memory, row-major (N, D): that
 // is the "col" B operand of mma.sync.m16n8k32.row.col.s32.s8.s8.s32, so
@@ -20,61 +30,79 @@
 // raw dot is rounded once to f32 (combine()):
 //   dot_raw = f32(A_0 2^14 + A_1 2^7 + A_2) * 2^-14 * scale.
 // The epilogue is scan_tile::surrogate with qn2 and qsum of the UNROUNDED
-// query, so the surface carries the query-slicing error (dq_rel, computed
+// query, so every output carries the query-slicing error (dq_rel, computed
 // exactly by the wrapper and carried by ops/scan.py::surface_delta) and f32
 // epilogue rounding, nothing from the products.
 //
 // Bound on the H100: at Q = 1024, N = 1M, D = 384 the 3-slice int8 products
 // are 2*3*Q*N*D = 2.5 Tops, 1.25 ms at the 1,979 TOP/s dense int8 rate
 // (the bf16 yardstick of 2*Q*N*D over 989 TFLOP/s is 0.83 ms); at Q <= 64
-// the codes read (N*D bytes, 0.12 ms) bounds it instead.  mma.sync itself
-// reaches 1,254 TOP/s int8 fed from registers (tools/mma_rate.py, H100 80GB
-// HBM3 at 700 W), a 2.0 ms floor for these products; what this kernel
-// spends beyond it goes to feeding the tensor cores from shared memory
-// (ldmatrix, 5 per 12 MMAs) and to the surrogate epilogue.  wgmma, which
+// the codes read (N*D bytes, 0.12 ms) bounds the segment minima instead.
+// K4 stores 4 (f32) or 2 (bf16) bytes per (q, r): at Q = 128 its 512 MiB
+// f32 surface (0.16 ms at 3.35 TB/s) and the codes bound it.  mma.sync
+// itself reaches 1,254 TOP/s int8 fed from registers (tools/mma_rate.py,
+// H100 80GB HBM3 at 700 W), a 2.0 ms floor for the Q = 1024 products; what
+// this kernel spends beyond it goes to feeding the tensor cores from shared
+// memory (ldmatrix, 5 per 12 MMAs) and to the epilogue.  wgmma, which
 // reads its operands from shared memory itself, is the way past it.
 //
-// Design (segmin_i8_res_kernel, every Kp whose slices fit shared memory:
-// D <= 992 on the H100).  Slices streamed beside every code tile would be
-// re-read from L2 with every tile, and an epilogue that every warp of a
-// block runs at the same step leaves the tensor cores idle.  So:
+// Design: one product loop, three epilogues.  The loads, the slices'
+// residency, products() and combine() are shared; the epilogue is a
+// template parameter (EP) of both kernels, and a unit of work is EP::ROWS
+// rows: one output segment for SegMin at SEG >= 32 (SEG/32 consecutive
+// 32-row warp tiles, the minimum carried in registers across them and
+// stored after the last), one 32-row tile otherwise (SegMin<16>: two
+// outputs, n8 tiles 0-1 and 2-3; Surface: 32 rows).
+//
+// segmin_i8_res_kernel, every Kp whose slices fit shared memory (D <= 992
+// on the H100).  Slices streamed beside every code tile would be re-read
+// from L2 with every tile, and an epilogue that every warp of a block runs
+// at the same step leaves the tensor cores idle.  So:
 //  - The block's 64-query tile of slices (3 x 64 rows x Kp bytes) is loaded
 //    once and stays in shared memory; only the codes stream, and a code row
 //    is read once per 64 queries (16 times at Q = 1024, once at Q <= 64).
 //  - The block's two halves (4 warps each, one 16-query quarter of the
-//    tile a warp) are independent row streams: each walks its own 32-row
-//    segments through its own 4-stage cp.async ring (BK = 128 bytes of K a
-//    stage, rows padded to 144 bytes so ldmatrix.x4 is conflict-free),
+//    tile a warp) are independent row streams: each walks its own units
+//    through its own 4-stage cp.async ring (BK = 128 bytes of K a stage,
+//    rows padded to 144 bytes so ldmatrix.x4 is conflict-free),
 //    synchronised by its own named barrier.  The streams drift apart, so
 //    one stream's epilogue runs while the other's products and loads
-//    proceed.  A segment's last stage also brings its 32 norms and
+//    proceed.  Each 32-row tile's last stage also brings its 32 norms and
 //    validity bytes.
 //  - A warp's tile is 16 queries x 32 rows: S m16 tiles (the S slices of
 //    its 16 queries, so each thread holds every slice of its queries in C
 //    rows lane/4 and lane/4 + 8 and combines them in registers) by 4 n8
-//    tiles (its segment); two __shfl_xor_sync over lane%4 finish the
-//    segment minimum.  Warps whose queries lie past Q skip their products
-//    and epilogue, so Q = 8 costs little beyond the codes' read.  (This
-//    layout, 144 registers a thread, measured faster at Q = 1024, 64 and 8
-//    than 2-warp streams of 32-query warps at 227 registers.)
-//  - Blocks: query tiles x row ranges, one block per SM; the blocks of one
-//    row range walk the same rows together, so a code tile comes from HBM
-//    once and from L2 for the other query tiles.
+//    tiles.  A thread holds rows j*8 + tig*2 + c, c = 0, 1: SegMin folds
+//    them and two __shfl_xor_sync over lane%4 finish a minimum; Surface
+//    stores the pair as one float2 (or __nv_bfloat162), so a quad writes
+//    one 32-byte (16-byte) run per (query, n8 tile).  Warps whose queries
+//    lie past Q skip their products and epilogue, so Q = 8 costs little
+//    beyond the codes' read.  (This layout, 144 registers a thread,
+//    measured faster at Q = 1024, 64 and 8 than 2-warp streams of 32-query
+//    warps at 227 registers.)
+//  - Blocks: query tiles x row ranges of whole units, one block per SM;
+//    the blocks of one row range walk the same rows together, so a code
+//    tile comes from HBM once and from L2 for the other query tiles.
 //  - Code rows start at row*D bytes: D % 16 == 0 takes 16-byte copies,
 //    D % 4 == 0 4-byte copies, any other D byte copies (synchronous); the K
-//    tail (D..Kp) is zero-filled.
+//    tail (D..Kp) and rows past N are zero-filled, and rows past N are
+//    never stored (the wrapper pads norms and validity to whole 32-row
+//    tiles).
 // Past that Kp segmin_i8_stream_kernel runs the same warp tiles with the
-// slices streamed beside the codes through one block-wide ring.  wgmma/TMA,
-// and the 4/16-bit and seg 16/64/128 forms, are later work.
+// slices streamed beside the codes through one block-wide ring; a stage
+// holds each warp's next 32-row tile of its own unit.  wgmma/TMA and the
+// 4/16-bit forms are later work.
 
 #include <algorithm>
+
+#include <cuda_bf16.h>
 
 #include "scan_tile.cuh"
 
 namespace {
 
 constexpr int S = 3;               // query slices (ops/scan.py I8_SLICES)
-constexpr int SEG = 32;            // rows per segment (one warp's n extent)
+constexpr int TN = 32;             // rows of a warp tile (4 n8 tiles)
 constexpr int NWARPS = 8;
 constexpr int NTHREADS = NWARPS * 32;
 constexpr int MQ = 1;              // m16 query tiles per warp (16 queries)
@@ -139,11 +167,11 @@ struct Args {
   const int8_t* slices;   // (S, Q, Kp) int8
   const float* qscale;    // (Q,) power-of-two slice scale
   const int8_t* codes;    // (N, D) int8, centered
-  const float* norms;     // (N,)
-  const uint8_t* valid;   // (N,) bool
+  const float* norms;     // (N rounded up to 32,)
+  const uint8_t* valid;   // (N rounded up to 32,) bool
   const float* qn2;       // (Q,) |q|^2 of the unrounded query
   const float* qsum;      // (Q,) sum(q) of the unrounded query
-  float* out;             // (Q, N / 32)
+  void* out;              // the epilogue's: (Q, N / SEG) f32 or (Q, N)
   int Q;
   long N;
   int D;
@@ -197,50 +225,149 @@ __device__ __forceinline__ QueryTerms query_terms(const Args& a, int qb,
   return t;
 }
 
-// the surrogate of the warp's queries x 32 rows (rows j*8 + tig*2 + c of
-// segment `seg`), its segment minimum, and the store of out[q, seg]
+using Acc = int[S][MQ][4][4];
+
+// the surrogate of query row h of m16 tile m and row j*8 + tig*2 + c of
+// the warp's 32-row tile
 template <bool COSINE>
-__device__ __forceinline__ void epilogue(const Args& a,
-                                         const int (&acc)[S][MQ][4][4],
-                                         const QueryTerms& t,
-                                         const float (&vn)[4][2],
-                                         const bool (&vok)[4][2], int qb,
-                                         long seg, int g, int tig) {
-  const long nseg = a.N / SEG;
+__device__ __forceinline__ float surr(const Args& a, const Acc& acc,
+                                      const QueryTerms& t, float vn, bool ok,
+                                      int m, int h, int j, int c) {
+  const int e = 2 * h + c;
+  const float raw = combine(acc[0][m][j][e], acc[1][m][j][e],
+                            acc[2][m][j][e], t.qlo[m][h]);
+  return scan_tile::surrogate<COSINE>(raw, a.scale, t.off[m][h], t.n2[m][h],
+                                      vn, ok);
+}
+
+// ---------------------------------------------------------------------------
+// epilogues: begin() at a unit's first tile, tile() at each 32-row tile's
+// last K stage (tile ti of unit `unit`, rows unit * ROWS + ti * 32 + ...)
+// ---------------------------------------------------------------------------
+
+// SEGL-row segment minima -> out (Q, N / SEGL) f32
+template <int SEGL, bool COSINE>
+struct SegMin {
+  static_assert(SEGL == 16 || SEGL == 32 || SEGL == 64 || SEGL == 128,
+                "segment lengths the kernel is built for");
+  static constexpr int ROWS = SEGL > TN ? SEGL : TN;     // rows of a unit
+  static constexpr int PER = SEGL < TN ? TN / SEGL : 1;  // outputs a tile
+  static constexpr int JPER = 4 / PER;                   // n8 tiles each
+
+  float mn[MQ][2][PER];
+
+  __device__ __forceinline__ void begin() {
 #pragma unroll
-  for (int m = 0; m < MQ; ++m) {
-    if (qb + m * 16 >= a.Q) break;  // warp-uniform: the shuffles stay whole
+    for (int m = 0; m < MQ; ++m)
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mn = __int_as_float(0x7f800000);
+      for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int j = 0; j < 4; ++j)
+        for (int p = 0; p < PER; ++p) mn[m][h][p] = __int_as_float(0x7f800000);
+  }
+
+  __device__ __forceinline__ void tile(const Args& a, const Acc& acc,
+                                       const QueryTerms& t,
+                                       const float (&vn)[4][2],
+                                       const bool (&vok)[4][2], int qb,
+                                       long unit, int ti, int g, int tig) {
 #pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const int e = 2 * h + c;
-          const float raw = combine(acc[0][m][j][e], acc[1][m][j][e],
-                                    acc[2][m][j][e], t.qlo[m][h]);
-          mn = fminf(mn, scan_tile::surrogate<COSINE>(
-                             raw, a.scale, t.off[m][h], t.n2[m][h], vn[j][c],
-                             vok[j][c]));
+    for (int m = 0; m < MQ; ++m) {
+      if (qb + m * 16 >= a.Q) break;  // warp-uniform: the shuffles stay whole
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            mn[m][h][j / JPER] =
+                fminf(mn[m][h][j / JPER],
+                      surr<COSINE>(a, acc, t, vn[j][c], vok[j][c], m, h, j, c));
+    }
+    if constexpr (ROWS > TN) {
+      if (ti != ROWS / TN - 1) return;  // the unit's last tile stores
+    }
+    const long nseg = a.N / SEGL;
+    float* out = static_cast<float*>(a.out);
+#pragma unroll
+    for (int m = 0; m < MQ; ++m) {
+      if (qb + m * 16 >= a.Q) break;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int p = 0; p < PER; ++p) {
+          float v = mn[m][h][p];
+          v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+          v = fminf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+          const int q = qb + m * 16 + g + 8 * h;
+          const long seg = unit * PER + p;
+          if (tig == 0 && q < a.Q && seg < nseg)
+            out[static_cast<long>(q) * nseg + seg] = v;
         }
-      mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, 1));
-      mn = fminf(mn, __shfl_xor_sync(0xffffffffu, mn, 2));
-      const int q = qb + m * 16 + g + 8 * h;
-      if (tig == 0 && q < a.Q) a.out[static_cast<long>(q) * nseg + seg] = mn;
     }
   }
+};
+
+__device__ __forceinline__ void store_pair(float* p, float x, float y) {
+  *reinterpret_cast<float2*>(p) = make_float2(x, y);
 }
+__device__ __forceinline__ void store_pair(__nv_bfloat16* p, float x,
+                                           float y) {
+  *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x, y);
+}
+__device__ __forceinline__ void store_one(float* p, float x) { *p = x; }
+__device__ __forceinline__ void store_one(__nv_bfloat16* p, float x) {
+  *p = __float2bfloat16_rn(x);
+}
+
+// every surrogate -> out (Q, N) OutT (f32, or bf16 rounded to nearest)
+template <typename OutT, bool COSINE>
+struct Surface {
+  static constexpr int ROWS = TN;
+
+  __device__ __forceinline__ void begin() {}
+
+  __device__ __forceinline__ void tile(const Args& a, const Acc& acc,
+                                       const QueryTerms& t,
+                                       const float (&vn)[4][2],
+                                       const bool (&vok)[4][2], int qb,
+                                       long unit, int, int g, int tig) {
+    OutT* out = static_cast<OutT*>(a.out);
+    // a pair of rows is one aligned store when every (q, r) pair is
+    const bool pairs = (a.N & 1) == 0;
+#pragma unroll
+    for (int m = 0; m < MQ; ++m)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = qb + m * 16 + g + 8 * h;
+        if (q >= a.Q) continue;
+        OutT* orow = out + static_cast<long>(q) * a.N;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const long r = unit * ROWS + j * 8 + tig * 2;
+          if (r >= a.N) continue;
+          const float x = surr<COSINE>(a, acc, t, vn[j][0], vok[j][0], m, h,
+                                       j, 0);
+          const float y = surr<COSINE>(a, acc, t, vn[j][1], vok[j][1], m, h,
+                                       j, 1);
+          if (pairs && r + 1 < a.N) {
+            store_pair(orow + r, x, y);
+          } else {
+            store_one(orow + r, x);
+            if (r + 1 < a.N) store_one(orow + r + 1, y);
+          }
+        }
+      }
+  }
+};
 
 // acc += the warp's queries (A: rows s * arow_stride + i at `as`, pitch
 // apitch, byte column acol) x its 32 code rows (B: rows at bs, pitch
 // PITCH), over `ksteps` k32 steps; m16 tiles from `mtiles` on are skipped
 // (warp-uniform)
-__device__ __forceinline__ void products(int (&acc)[S][MQ][4][4],
-                                         const int8_t* as, int apitch,
-                                         int arow_stride, int acol,
-                                         const int8_t* bs, int ksteps,
-                                         int mtiles, int lane) {
+__device__ __forceinline__ void products(Acc& acc, const int8_t* as,
+                                         int apitch, int arow_stride,
+                                         int acol, const int8_t* bs,
+                                         int ksteps, int mtiles, int lane) {
 #pragma unroll
   for (int ks = 0; ks < BK / 32; ++ks) {
     if (ks >= ksteps) break;
@@ -279,7 +406,7 @@ __device__ __forceinline__ void products(int (&acc)[S][MQ][4][4],
   }
 }
 
-__device__ __forceinline__ void zero(int (&acc)[S][MQ][4][4]) {
+__device__ __forceinline__ void zero(Acc& acc) {
 #pragma unroll
   for (int s = 0; s < S; ++s)
 #pragma unroll
@@ -290,17 +417,20 @@ __device__ __forceinline__ void zero(int (&acc)[S][MQ][4][4]) {
         for (int e = 0; e < 4; ++e) acc[s][m][j][e] = 0;
 }
 
-// code rows row0 .. row0 + nrows - 1, bytes k0 .. k0 + BK - 1, into rows of
-// PITCH at dst, by thread tid of nt (VEC divides D, so a copy is wholly
-// inside or outside a row; rows past N and bytes past D are zero-filled)
+// code rows into rows of PITCH at dst, bytes k0 .. k0 + BK - 1, by thread
+// tid of nt: smem row i holds code row row0 + (i / 32) * rstride + i % 32
+// (rstride = 32: rows row0 .. row0 + nrows - 1).  VEC divides D, so a copy
+// is wholly inside or outside a row; rows past N and bytes past D are
+// zero-filled.
 template <int VEC>
 __device__ __forceinline__ void load_codes(const Args& a, int8_t* dst,
                                            long row0, int nrows, int k0,
-                                           int tid, int nt) {
+                                           int tid, int nt,
+                                           long rstride = TN) {
   constexpr int CH = BK / VEC;
   for (int i = tid; i < nrows * CH; i += nt) {
     const int r = i / CH, c = i % CH;
-    const long row = row0 + r;
+    const long row = row0 + (r / TN) * rstride + r % TN;
     const int k = k0 + c * VEC;
     const bool ok = row < a.N && k < a.D;
     copy_chunk<VEC>(dst + r * PITCH + c * VEC,
@@ -315,7 +445,7 @@ __device__ __forceinline__ void load_codes(const Args& a, int8_t* dst,
 constexpr int WQ = 4;                  // warps of a stream (query quarters)
 constexpr int RBQ = 16 * MQ * WQ;      // 64 queries per block
 constexpr int NSTREAMS = NWARPS / WQ;  // 2 row streams per block
-constexpr int SLOT = SEG * PITCH + SEG * 4 + SEG;  // codes, norms, valid
+constexpr int SLOT = TN * PITCH + TN * 4 + TN;  // codes, norms, valid
 
 __host__ __device__ constexpr int res_apitch(int Kp) { return Kp + 16; }
 
@@ -324,9 +454,10 @@ __host__ __device__ constexpr long res_smem(int Kp) {
          static_cast<long>(NSTREAMS) * STAGES * SLOT;
 }
 
-template <int VEC, bool COSINE>
+template <int VEC, class EP>
 __global__ void __launch_bounds__(NTHREADS, 1)
 segmin_i8_res_kernel(const Args a, int qtiles, int ranges) {
+  constexpr int UT = EP::ROWS / TN;  // 32-row tiles a unit
   extern __shared__ __align__(128) int8_t smem[];
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -335,9 +466,9 @@ segmin_i8_res_kernel(const Args a, int qtiles, int ranges) {
   const int apitch = res_apitch(a.Kp);
   const int q0 = static_cast<int>(blockIdx.x % qtiles) * RBQ;
   const long range = blockIdx.x / qtiles;
-  const long nseg = a.N / SEG;
-  const long seg_lo = nseg * range / ranges;
-  const long seg_hi = nseg * (range + 1) / ranges;
+  const long nunits = (a.N + EP::ROWS - 1) / EP::ROWS;
+  const long u_lo = nunits * range / ranges;
+  const long u_hi = nunits * (range + 1) / ranges;
 
   // the tile's slices, every K, once: row s * RBQ + (q - q0)
   int8_t* as = smem;
@@ -363,35 +494,38 @@ segmin_i8_res_kernel(const Args a, int qtiles, int ranges) {
   const QueryTerms t = query_terms(a, qb, g);
   const int8_t* as_w = as + wq * 16 * MQ * apitch;
 
-  // this stream's segments: seg_lo + p, + NSTREAMS, ... < seg_hi
+  // this stream's units: u_lo + p, + NSTREAMS, ... < u_hi, each UT tiles
   int8_t* ring = smem + S * RBQ * apitch + p * STAGES * SLOT;
-  const long mine = seg_hi - seg_lo > p
-                        ? (seg_hi - seg_lo - p + NSTREAMS - 1) / NSTREAMS
+  const long mine = u_hi - u_lo > p
+                        ? (u_hi - u_lo - p + NSTREAMS - 1) / NSTREAMS
                         : 0;
   const int nk = (a.Kp + BK - 1) / BK;
-  const long total = mine * nk;
+  const long total = mine * UT * nk;
   const int sid = wq * 32 + lane;  // thread of the stream
 
-  long issued = 0, ld_seg = seg_lo + p;
-  int ld_k = 0;
+  long issued = 0, ld_u = u_lo + p;
+  int ld_t = 0, ld_k = 0;
   auto issue = [&](int slot) {
     if (issued < total) {
       int8_t* st = ring + slot * SLOT;
-      load_codes<VEC>(a, st, ld_seg * SEG, SEG, ld_k * BK, sid, 32 * WQ);
+      const long row0 = ld_u * EP::ROWS + ld_t * TN;
+      load_codes<VEC>(a, st, row0, TN, ld_k * BK, sid, 32 * WQ);
       if (ld_k == nk - 1 && sid < 10) {
-        // the segment's norms (8 x 16 B) and validity (2 x 16 B)
+        // the tile's norms (8 x 16 B) and validity (2 x 16 B)
         const int8_t* src =
-            sid < 8
-                ? reinterpret_cast<const int8_t*>(a.norms + ld_seg * SEG) +
-                      sid * 16
-                : reinterpret_cast<const int8_t*>(a.valid + ld_seg * SEG) +
-                      (sid - 8) * 16;
-        copy_chunk<16>(st + SEG * PITCH + sid * 16, src, true);
+            sid < 8 ? reinterpret_cast<const int8_t*>(a.norms + row0) +
+                          sid * 16
+                    : reinterpret_cast<const int8_t*>(a.valid + row0) +
+                          (sid - 8) * 16;
+        copy_chunk<16>(st + TN * PITCH + sid * 16, src, true);
       }
       ++issued;
       if (++ld_k == nk) {
         ld_k = 0;
-        ld_seg += NSTREAMS;
+        if (++ld_t == UT) {
+          ld_t = 0;
+          ld_u += NSTREAMS;
+        }
       }
     }
     cp_async_commit();  // an empty group keeps the wait counts aligned
@@ -400,23 +534,27 @@ segmin_i8_res_kernel(const Args a, int qtiles, int ranges) {
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) issue(s);
 
-  int acc[S][MQ][4][4];
-  long cu_seg = seg_lo + p;
-  int kc = 0, slot = 0;
+  Acc acc;
+  EP ep;
+  long cu = u_lo + p;
+  int ct = 0, kc = 0, slot = 0;
   for (long f = 0; f < total; ++f) {
     cp_async_wait<STAGES - 2>();
     bar_sync(1 + p, 32 * WQ);  // stage f landed; the slot read at f-1 is free
     issue((slot + STAGES - 1) % STAGES);
 
     const int8_t* st = ring + slot * SLOT;
-    if (kc == 0) zero(acc);
+    if (kc == 0) {
+      zero(acc);
+      if (ct == 0) ep.begin();
+    }
     if (mtiles > 0)
       products(acc, as_w, apitch, RBQ, kc * BK, st,
                min(BK, a.Kp - kc * BK) / 32, mtiles, lane);
     if (kc == nk - 1 && mtiles > 0) {
-      const float* nv = reinterpret_cast<const float*>(st + SEG * PITCH);
+      const float* nv = reinterpret_cast<const float*>(st + TN * PITCH);
       const uint8_t* vv =
-          reinterpret_cast<const uint8_t*>(st + SEG * PITCH + SEG * 4);
+          reinterpret_cast<const uint8_t*>(st + TN * PITCH + TN * 4);
       float vn[4][2];
       bool vok[4][2];
 #pragma unroll
@@ -426,11 +564,14 @@ segmin_i8_res_kernel(const Args a, int qtiles, int ranges) {
           vn[j][c] = nv[j * 8 + tig * 2 + c];
           vok[j][c] = vv[j * 8 + tig * 2 + c] != 0;
         }
-      epilogue<COSINE>(a, acc, t, vn, vok, qb, cu_seg, g, tig);
+      ep.tile(a, acc, t, vn, vok, qb, cu, ct, g, tig);
     }
     if (++kc == nk) {
       kc = 0;
-      cu_seg += NSTREAMS;
+      if (++ct == UT) {
+        ct = 0;
+        cu += NSTREAMS;
+      }
     }
     slot = (slot + 1) % STAGES;
   }
@@ -443,13 +584,16 @@ segmin_i8_res_kernel(const Args a, int qtiles, int ranges) {
 
 constexpr int SBQ = 16 * MQ;            // 16 queries per tile
 constexpr int SAROWS = S * SBQ;         // slice rows per stage
-constexpr int SBN = NWARPS * SEG;       // 256 code rows per tile
+constexpr int SBN = NWARPS * TN;        // 256 code rows per stage
 constexpr int SSTAGE = (SAROWS + SBN) * PITCH;
 constexpr int SSMEM = STAGES * SSTAGE;
 
+// a stage: the query tile's slices and each warp's 32-row tile, warp w's
+// rows row0 + w * rstride + 0 .. 31
 template <int VEC>
 __device__ __forceinline__ void stream_stage(const Args& a, int8_t* st,
-                                             int q0, long row0, int k0) {
+                                             int q0, long row0, long rstride,
+                                             int k0) {
   constexpr int ACH = BK / 16;
   for (int i = threadIdx.x; i < SAROWS * ACH; i += NTHREADS) {
     const int r = i / ACH, c = i % ACH;
@@ -463,38 +607,46 @@ __device__ __forceinline__ void stream_stage(const Args& a, int8_t* st,
                    ok);
   }
   load_codes<VEC>(a, st + SAROWS * PITCH, row0, SBN, k0, threadIdx.x,
-                  NTHREADS);
+                  NTHREADS, rstride);
 }
 
-template <int VEC, bool COSINE>
+template <int VEC, class EP>
 __global__ void __launch_bounds__(NTHREADS, 1)
 segmin_i8_stream_kernel(const Args a) {
+  constexpr int UT = EP::ROWS / TN;
+  constexpr long GROUP = static_cast<long>(NWARPS) * EP::ROWS;
   extern __shared__ __align__(128) int8_t smem[];
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
   const int g = lane / 4, tig = lane % 4;
 
+  // block units: (16-query tile, NWARPS consecutive EP units, one a warp)
   const int qtiles = (a.Q + SBQ - 1) / SBQ;
-  const long units = qtiles * ((a.N + SBN - 1) / SBN);
+  const long nunits = (a.N + EP::ROWS - 1) / EP::ROWS;
+  const long units = qtiles * ((a.N + GROUP - 1) / GROUP);
   const int nk = (a.Kp + BK - 1) / BK;
   const long mine = units > blockIdx.x
                         ? (units - blockIdx.x + gridDim.x - 1) / gridDim.x
                         : 0;
-  const long total = mine * nk;
+  const long total = mine * UT * nk;
 
   // units blockIdx.x, + gridDim.x, ...: query tile fastest, so concurrent
   // blocks share code tiles in L2
   long issued = 0, ld_u = blockIdx.x;
-  int ld_k = 0;
+  int ld_t = 0, ld_k = 0;
   auto issue = [&](int slot) {
     if (issued < total) {
       stream_stage<VEC>(a, smem + slot * SSTAGE,
                         static_cast<int>(ld_u % qtiles) * SBQ,
-                        (ld_u / qtiles) * SBN, ld_k * BK);
+                        (ld_u / qtiles) * GROUP + ld_t * TN, EP::ROWS,
+                        ld_k * BK);
       ++issued;
       if (++ld_k == nk) {
         ld_k = 0;
-        ld_u += gridDim.x;
+        if (++ld_t == UT) {
+          ld_t = 0;
+          ld_u += gridDim.x;
+        }
       }
     }
     cp_async_commit();
@@ -503,9 +655,10 @@ segmin_i8_stream_kernel(const Args a) {
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) issue(s);
 
-  int acc[S][MQ][4][4];
+  Acc acc;
+  EP ep;
   long cu = blockIdx.x;
-  int kc = 0, slot = 0;
+  int ct = 0, kc = 0, slot = 0;
   for (long f = 0; f < total; ++f) {
     cp_async_wait<STAGES - 2>();
     __syncthreads();  // stage f landed; the slot read at f-1 is free
@@ -514,27 +667,32 @@ segmin_i8_stream_kernel(const Args a) {
     const int8_t* st = smem + slot * SSTAGE;
     const int qb = static_cast<int>(cu % qtiles) * SBQ;
     const int mtiles = min(MQ, (a.Q - qb + 15) / 16);
-    if (kc == 0) zero(acc);
-    products(acc, st, PITCH, SBQ, 0, st + (SAROWS + warp * SEG) * PITCH,
+    const long unit = (cu / qtiles) * NWARPS + warp;  // this warp's unit
+    if (kc == 0) {
+      zero(acc);
+      if (ct == 0) ep.begin();
+    }
+    products(acc, st, PITCH, SBQ, 0, st + (SAROWS + warp * TN) * PITCH,
              min(BK, a.Kp - kc * BK) / 32, mtiles, lane);
-    const long seg = (cu / qtiles) * (SBN / SEG) + warp;
-    if (kc == nk - 1 && seg < a.N / SEG) {
+    if (kc == nk - 1 && unit < nunits) {
       float vn[4][2];
       bool vok[4][2];
 #pragma unroll
       for (int j = 0; j < 4; ++j)
 #pragma unroll
         for (int c = 0; c < 2; ++c) {
-          const long row = seg * SEG + j * 8 + tig * 2 + c;
+          const long row = unit * EP::ROWS + ct * TN + j * 8 + tig * 2 + c;
           vn[j][c] = a.norms[row];
           vok[j][c] = a.valid[row] != 0;
         }
-      epilogue<COSINE>(a, acc, query_terms(a, qb, g), vn, vok, qb,
-                              seg, g, tig);
+      ep.tile(a, acc, query_terms(a, qb, g), vn, vok, qb, unit, ct, g, tig);
     }
     if (++kc == nk) {
       kc = 0;
-      cu += gridDim.x;
+      if (++ct == UT) {
+        ct = 0;
+        cu += gridDim.x;
+      }
     }
     slot = (slot + 1) % STAGES;
   }
@@ -561,7 +719,7 @@ cudaError_t prepare(K kern, long smem, int* per_sm, int* sms) {
   return e;
 }
 
-template <int VEC, bool COSINE>
+template <int VEC, class EP>
 int launch(const Args& a, cudaStream_t st) {
   int dev = 0, optin = 0, per_sm = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -571,59 +729,106 @@ int launch(const Args& a, cudaStream_t st) {
   if (e != cudaSuccess) return static_cast<int>(e);
   const long smem = res_smem(a.Kp);
   if (smem <= optin) {
-    auto kern = segmin_i8_res_kernel<VEC, COSINE>;
+    auto kern = segmin_i8_res_kernel<VEC, EP>;
     e = prepare(kern, smem, &per_sm, &sms);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int qtiles = (a.Q + RBQ - 1) / RBQ;
-    const long nseg = a.N / SEG;
+    const long nunits = (a.N + EP::ROWS - 1) / EP::ROWS;
     // about one block per SM: query tiles x row ranges, each range at
-    // least one segment per stream
+    // least one unit per stream
     const long ranges = std::max(
         1L, std::min(static_cast<long>(sms) * per_sm / qtiles,
-                     (nseg + NSTREAMS - 1) / NSTREAMS));
+                     (nunits + NSTREAMS - 1) / NSTREAMS));
     kern<<<static_cast<unsigned>(qtiles * ranges), NTHREADS, smem, st>>>(
         a, qtiles, static_cast<int>(ranges));
   } else {
-    auto kern = segmin_i8_stream_kernel<VEC, COSINE>;
+    auto kern = segmin_i8_stream_kernel<VEC, EP>;
     e = prepare(kern, SSMEM, &per_sm, &sms);
     if (e != cudaSuccess) return static_cast<int>(e);
+    const long group = static_cast<long>(NWARPS) * EP::ROWS;
     const long units = static_cast<long>((a.Q + SBQ - 1) / SBQ) *
-                       ((a.N + SBN - 1) / SBN);
+                       ((a.N + group - 1) / group);
     const long grid = std::min(units, static_cast<long>(sms) * per_sm);
     kern<<<static_cast<unsigned>(grid), NTHREADS, SSMEM, st>>>(a);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int VEC>
-int launch_metric(const Args& a, bool cosine, cudaStream_t st) {
-  return cosine ? launch<VEC, true>(a, st) : launch<VEC, false>(a, st);
+// by code copy width, then metric (EPC: the cosine epilogue, EPE: the
+// euclidean one)
+template <class EPC, class EPE>
+int launch_all(const Args& a, bool cosine, int vec, cudaStream_t st) {
+  switch (vec) {
+    case 16: return cosine ? launch<16, EPC>(a, st) : launch<16, EPE>(a, st);
+    case 4: return cosine ? launch<4, EPC>(a, st) : launch<4, EPE>(a, st);
+    case 1: return cosine ? launch<1, EPC>(a, st) : launch<1, EPE>(a, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <int SEGL>
+int launch_segmin(const Args& a, bool cosine, int vec, cudaStream_t st) {
+  return launch_all<SegMin<SEGL, true>, SegMin<SEGL, false>>(a, cosine, vec,
+                                                             st);
+}
+
+template <typename OutT>
+int launch_surface(const Args& a, bool cosine, int vec, cudaStream_t st) {
+  return launch_all<Surface<OutT, true>, Surface<OutT, false>>(a, cosine,
+                                                               vec, st);
+}
+
+bool bad_shape(int D, int Kp) {
+  return Kp % 32 || Kp < D || D > (1 << 17);
 }
 
 }  // namespace
 
-// C entry point (bound with ctypes).  slices (S, Q, Kp) int8 and qscale (Q,)
-// f32 come from ops/scan.py::slice_queries; qn2 and qsum are |q|^2 and
-// sum(q) of the unrounded f32 queries; codes are (N, D) int8 with N a
-// multiple of 32 and D <= 2^17; norms and valid start 16-byte aligned; vec
-// (16, 4 or 1) is the code copy width, which must divide D and the codes'
-// address.  Returns cudaGetLastError() after the launch.
+// C entry points (bound with ctypes).  slices (S, Q, Kp) int8 and qscale
+// (Q,) f32 come from ops/scan.py::slice_queries; qn2 and qsum are |q|^2 and
+// sum(q) of the unrounded f32 queries; codes are (N, D) int8 with
+// D <= 2^17; norms and valid start 16-byte aligned and hold N rounded up to
+// a multiple of 32 entries (the pad rows are never stored); vec (16, 4 or
+// 1) is the code copy width, which must divide D and the codes' address.
+// Each returns cudaGetLastError() after the launch.
+
+// K1/K5/K6: out (Q, N / seg) f32, seg in {16, 32, 64, 128} dividing N
 extern "C" int segmin_i8_launch(const int8_t* slices, const float* qscale,
                                 const int8_t* codes, const float* norms,
                                 const uint8_t* valid, const float* qn2,
                                 const float* qsum, float* out, int Q, long N,
                                 int D, int Kp, int cosine, float scale,
-                                float offset, int vec, void* stream) {
+                                float offset, int seg, int vec,
+                                void* stream) {
   if (Q <= 0 || N <= 0) return 0;
-  if (N % SEG || Kp % 32 || Kp < D || D > (1 << 17))
+  if (bad_shape(D, Kp) || seg <= 0 || N % seg)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{slices, qscale, codes, norms, valid, qn2, qsum, out,
                Q,      N,      D,     Kp,    scale, offset};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (vec) {
-    case 16: return launch_metric<16>(a, cosine != 0, st);
-    case 4: return launch_metric<4>(a, cosine != 0, st);
-    case 1: return launch_metric<1>(a, cosine != 0, st);
+  const bool cosn = cosine != 0;
+  switch (seg) {
+    case 16: return launch_segmin<16>(a, cosn, vec, st);
+    case 32: return launch_segmin<32>(a, cosn, vec, st);
+    case 64: return launch_segmin<64>(a, cosn, vec, st);
+    case 128: return launch_segmin<128>(a, cosn, vec, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+}
+
+// K4: out (Q, N) f32 when out_bf16 == 0, else bf16; any N
+extern "C" int surface_i8_launch(const int8_t* slices, const float* qscale,
+                                 const int8_t* codes, const float* norms,
+                                 const uint8_t* valid, const float* qn2,
+                                 const float* qsum, void* out, int Q, long N,
+                                 int D, int Kp, int cosine, float scale,
+                                 float offset, int out_bf16, int vec,
+                                 void* stream) {
+  if (Q <= 0 || N <= 0) return 0;
+  if (bad_shape(D, Kp)) return static_cast<int>(cudaErrorInvalidValue);
+  const Args a{slices, qscale, codes, norms, valid, qn2, qsum, out,
+               Q,      N,      D,     Kp,    scale, offset};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return out_bf16 ? launch_surface<__nv_bfloat16>(a, cosine != 0, vec, st)
+                  : launch_surface<float>(a, cosine != 0, vec, st);
 }

@@ -1,8 +1,9 @@
-"""Exhaustive scans: the wrappers of kernels K1 (``csrc/segmin_i8.cu`` for
-8-bit codes, ``csrc/segmin.cu`` for the other widths), K5/K6
-(``csrc/segmin.cu``) and K4 (``csrc/surface.cu``), their plain PyTorch
-versions, and the provable select-and-rerank stage — the port of
-``syzgydb_tpu/ops/pallas_scan.py``.
+"""Exhaustive scans: the wrappers of kernels K1 and K5/K6 (segment minima;
+``csrc/segmin_i8.cu`` for 8-bit codes, ``csrc/segmin.cu`` for the other
+widths) and K4 (the full surface; ``csrc/segmin_i8.cu`` for 8-bit codes,
+``csrc/surface.cu`` for the other widths), their plain PyTorch versions,
+and the provable select-and-rerank stage — the port of
+``syzgydb_tpu/ops/pallas_scan.py``.  ``_route`` is the one dispatch rule.
 
 Two phases, as in the JAX package:
 
@@ -30,10 +31,10 @@ segment-interleaved transposed operand, no 128-lane slab and no lean
 placement.  K1 reads the row-major (N, W) codes, and its minima are f32 at
 every width, so the f32-surface tie margin (6) applies to high and exact
 alike.  A CUDA tensor launches the kernel (or raises); a CPU tensor runs
-the plain version.  The 8-bit K1 route multiplies int8 slices of the query
-(slice_queries) on tensor cores, so its surface also carries the slicing
-error dq_rel, which the flag's bound (surface_delta) takes wherever that
-route ran.
+the plain version.  The 8-bit route of K1, K5/K6 and K4 multiplies int8
+slices of the query (slice_queries) on tensor cores, so its surfaces also
+carry the slicing error dq_rel, which the flags' bound (surface_delta)
+takes wherever that route ran (fused_scan_topk and surface_topk alike).
 """
 
 from __future__ import annotations
@@ -82,14 +83,17 @@ GATHER_BUDGET_BYTES = 1 << 30
 # segment lengths the CUDA segment-min kernel is built for
 KERNEL_SEGS = (16, 32, 64, 128)
 
-# plain-integer launch counters (reset by callers)
-launches = 0            # K1: segment-min kernel at DEFAULT_SEG, either route
-i8_launches = 0         # K1's int8 tensor-core route (8-bit codes)
-free_seg_launches = 0   # K5/K6: the fp32 kernel at another segment length
-surface_launches = 0    # K4: full surface kernel
+# plain-integer launch counters (reset by callers): each kernel's count of
+# launches by either route, and of those by its int8 route (8-bit codes)
+launches = 0              # K1: segment minima at DEFAULT_SEG
+i8_launches = 0
+free_seg_launches = 0     # K5/K6: segment minima at seg 16, 64 or 128
+i8_free_seg_launches = 0
+surface_launches = 0      # K4: the full surface
+i8_surface_launches = 0
 
-# K1's int8 route: query slices (the S csrc/segmin_i8.cu is built for),
-# and the widest D whose int32 slice sums cannot overflow
+# the int8 route: query slices (the S csrc/segmin_i8.cu is built for), and
+# the widest D whose int32 slice sums cannot overflow
 # (|sum| <= 127 * 128 * Kp < 2^31)
 I8_SLICES = 3
 I8_MAX_DIMS = 1 << 17
@@ -166,14 +170,16 @@ def segment_min_scan_plain(queries, codes, norms, valid, *, bits: int,
 
 def score_surface_plain(queries, codes, norms, valid, *, bits: int,
                         metric: str, exact: bool = False, dtype=None,
-                        block_rows: int = 1 << 17):
+                        block_rows: int = 1 << 17, query_terms=None):
     """Plain version of K4: the (Q, N) surrogate surface, invalid rows
     +inf, computed in f32 (or `dtype`, e.g. float64 as an exact reference)
-    and returned in f32 when `exact`, else rounded to bf16."""
+    and returned in f32 when `exact`, else rounded to bf16.  `query_terms`
+    as segment_min_scan_plain's."""
     q, d = queries.shape
     n = codes.shape[0]
     work = torch.float32 if dtype is None else dtype
-    qx, qn2, qsum, step = _plain_blocks(queries, 1, work, block_rows)
+    qx, qn2, qsum, step = _plain_blocks(queries, 1, work, block_rows,
+                                        query_terms)
     out_t = work if (exact or dtype is not None) else torch.bfloat16
     out = torch.empty((q, n), dtype=out_t, device=codes.device)
     for a in range(0, n, step):
@@ -235,13 +241,31 @@ _SCAN_ENTRY_ARGTYPES = [ctypes.c_void_p] * 7 + [
     ctypes.c_void_p]
 
 
-def _cuda_device(codes) -> bool:
-    """True for a CUDA tensor, False for a CPU one; raises otherwise."""
+def _route(codes, bits: int) -> str:
+    """Which version of K1, K5/K6 and K4 runs on `codes` — this module's one
+    dispatch rule, by device and width:
+
+      * "plain": CPU tensors, the plain PyTorch versions;
+      * "i8": 8-bit codes on CUDA, the int8 tensor-core route
+        (csrc/segmin_i8.cu) at every segment length of KERNEL_SEGS and for
+        K4's f32 and bf16 surfaces; its outputs carry slice_queries' dq_rel;
+      * "fp32": every other width on CUDA, the fp32 kernels
+        (csrc/segmin.cu, csrc/surface.cu).
+
+    Not a fallback: a build or launch failure of the chosen kernel raises,
+    and so does a shape it cannot take (D > I8_MAX_DIMS on the int8
+    route)."""
     if codes.device.type == "cpu":
-        return False
+        return "plain"
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
-    return True
+    return "i8" if bits == 8 else "fp32"
+
+
+def _check_kernel_seg(seg: int) -> None:
+    if seg not in KERNEL_SEGS:
+        raise ValueError(f"the segment-min kernel is built for segments of "
+                         f"{KERNEL_SEGS} rows, not {seg}")
 
 
 def slice_queries(queries):
@@ -314,17 +338,20 @@ def i8_term_scale(qn2, norms, valid, *, metric: str, dims: int):
         2.0 * offd * torch.rsqrt(vmin.clamp_min(1e-30))
 
 
-# segmin_i8_launch: eight pointers (slices, qscale, codes, norms, valid,
-# qn2, qsum, out), Q, N, D, Kp, cosine, scale, offset, vec, the stream
+# segmin_i8_launch and surface_i8_launch: eight pointers (slices, qscale,
+# codes, norms, valid, qn2, qsum, out), Q, N, D, Kp, cosine, scale, offset,
+# then seg (segmin) or out_bf16 (surface), vec, and the stream
 _I8_ENTRY_ARGTYPES = [ctypes.c_void_p] * 8 + [
     ctypes.c_int, ctypes.c_long, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_void_p]
+    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_void_p]
 
 
-def _segmin_i8(queries, codes, norms, valid, *, metric: str):
-    """K1's int8 tensor-core route (csrc/segmin_i8.cu) on 8-bit codes at
-    seg 32 -> (segmins, dq_rel)."""
-    global launches, i8_launches
+def _launch_i8(symbol: str, out, last: int, queries, codes, norms, valid,
+               metric: str):
+    """Launch `symbol` of csrc/segmin_i8.cu (segmin_i8_launch with `last` =
+    seg, surface_i8_launch with `last` = out_bf16) into `out` on 8-bit
+    codes -> slice_queries' dq_rel."""
     q, d = queries.shape
     if d > I8_MAX_DIMS:
         raise ValueError(f"D={d} exceeds the int8 route's {I8_MAX_DIMS} "
@@ -333,22 +360,40 @@ def _segmin_i8(queries, codes, norms, valid, *, metric: str):
                                                       valid, 8)
     slices, qscale, dq_rel = slice_queries(queries)
     n = codes.shape[0]
-    out = torch.empty((q, n // DEFAULT_SEG), dtype=torch.float32,
-                      device=codes.device)
-    # the kernel copies a segment's norms and validity 16 bytes at a time
+    # the kernel reads norms and validity in whole 32-row tiles, 16 bytes
+    # at a time: pad rows are invalid (and never stored), starts aligned
+    pad = -n % 32
+    if pad:
+        norms = torch.cat((norms, norms.new_zeros(pad)))
+        valid = torch.cat((valid, valid.new_zeros(pad)))
     norms, valid = (t if t.data_ptr() % 16 == 0 else t.clone()
                     for t in (norms, valid))
     # code copy width: 16-byte cp.async where every row start allows it
     ptr = codes.data_ptr()
     vec = next(v for v in (16, 4, 1) if d % v == 0 and ptr % v == 0)
-    fn = cuda_build.entry("segmin_i8", "segmin_i8_launch", _I8_ENTRY_ARGTYPES)
+    fn = cuda_build.entry("segmin_i8", symbol, _I8_ENTRY_ARGTYPES)
     rc = fn(slices.data_ptr(), qscale.data_ptr(), ptr, norms.data_ptr(),
             valid.data_ptr(), qn2.data_ptr(), qsum.data_ptr(), out.data_ptr(),
             q, n, d, slices.shape[2], int(metric != "euclidean"), scale,
-            offset, vec, cuda_build.launch_stream(codes.device))
-    cuda_build.check(rc, "segmin_i8")
-    launches += 1
-    i8_launches += 1
+            offset, last, vec, cuda_build.launch_stream(codes.device))
+    cuda_build.check(rc, symbol)
+    return dq_rel
+
+
+def _segmin_i8(queries, codes, norms, valid, *, metric: str, seg: int):
+    """K1 (seg 32) and K5/K6 (seg 16, 64, 128) on the int8 route ->
+    (segmins, dq_rel)."""
+    global launches, i8_launches, free_seg_launches, i8_free_seg_launches
+    out = torch.empty((queries.shape[0], codes.shape[0] // seg),
+                      dtype=torch.float32, device=codes.device)
+    dq_rel = _launch_i8("segmin_i8_launch", out, seg, queries, codes, norms,
+                        valid, metric)
+    if seg == DEFAULT_SEG:
+        launches += 1
+        i8_launches += 1
+    else:
+        free_seg_launches += 1
+        i8_free_seg_launches += 1
     return out, dq_rel
 
 
@@ -357,9 +402,7 @@ def segmin_fp32(queries, codes, norms, valid, *, bits: int, metric: str,
     """The fp32 segment-min kernel (csrc/segmin.cu) on CUDA tensors, at any
     width and at seg 16, 32, 64 or 128."""
     global launches, free_seg_launches
-    if seg not in KERNEL_SEGS:
-        raise ValueError(f"the segment-min kernel is built for segments of "
-                         f"{KERNEL_SEGS} rows, not {seg}")
+    _check_kernel_seg(seg)
     q = queries.shape[0]
     n, w = codes.shape
     qx, qn2, qsum, k_dims, scale, offset = _kernel_operands(
@@ -384,11 +427,14 @@ def _segment_min(queries, codes, norms, valid, *, bits: int, metric: str,
     """segment_min_scan -> (segmins, dq_rel): dq_rel is slice_queries'
     (Q,) query-slicing error where the int8 route ran, else None."""
     _check_scan_args(queries, codes, norms, valid, bits, seg)
-    if not _cuda_device(codes):
+    route = _route(codes, bits)
+    if route == "plain":
         return segment_min_scan_plain(queries, codes, norms, valid, bits=bits,
                                       metric=metric, seg=seg), None
-    if bits == 8 and seg == DEFAULT_SEG:
-        return _segmin_i8(queries, codes, norms, valid, metric=metric)
+    _check_kernel_seg(seg)
+    if route == "i8":
+        return _segmin_i8(queries, codes, norms, valid, metric=metric,
+                          seg=seg)
     return segmin_fp32(queries, codes, norms, valid, bits=bits,
                        metric=metric, seg=seg), None
 
@@ -398,13 +444,11 @@ def segment_min_scan(queries, codes, norms, valid, *, bits: int, metric: str,
     """(Q, D) f32 queries x (N, W) codes -> (Q, N/seg) f32 segment minima of
     the surrogate distance, invalid rows +inf, in original segment order.
 
-    CUDA tensors on the current device launch a kernel, chosen by shape:
-    8-bit codes at seg 32 (every high/exact dispatch of an 8-bit
-    collection) take K1's int8 tensor-core route (csrc/segmin_i8.cu, the
-    queries split by slice_queries), whose error carries slice_queries'
-    dq_rel; every other width, and seg 16, 64 or 128 (the K5/K6 port),
-    takes the fp32 kernel (csrc/segmin.cu).  A failure of either raises.
-    CPU tensors take the plain version at any seg."""
+    CUDA tensors on the current device launch the kernel `_route` picks at
+    seg 16, 32, 64 or 128 (K1 at 32, the K5/K6 port at the others): 8-bit
+    codes the int8 tensor-core route, whose error carries slice_queries'
+    dq_rel; other widths the fp32 kernel.  CPU tensors take the plain
+    version at any seg."""
     return _segment_min(queries, codes, norms, valid, bits=bits,
                         metric=metric, seg=seg)[0]
 
@@ -413,21 +457,24 @@ def segment_min_scan(queries, codes, norms, valid, *, bits: int, metric: str,
 # K4: full surrogate surface
 # ---------------------------------------------------------------------------
 
-def score_surface(queries, codes, norms, valid, *, bits: int, metric: str,
-                  exact: bool = False):
-    """(Q, D) f32 queries x (N, W) codes -> (Q, N) surrogate-distance
-    surface, invalid rows +inf: f32 when `exact`, else bf16 rounded from
-    the f32 value.
+def _surface_i8(queries, codes, norms, valid, *, metric: str, exact: bool):
+    """K4 on the int8 route -> (surface, dq_rel)."""
+    global surface_launches, i8_surface_launches
+    out = torch.empty((queries.shape[0], codes.shape[0]), device=codes.device,
+                      dtype=torch.float32 if exact else torch.bfloat16)
+    dq_rel = _launch_i8("surface_i8_launch", out, int(not exact), queries,
+                        codes, norms, valid, metric)
+    surface_launches += 1
+    i8_surface_launches += 1
+    return out, dq_rel
 
-    CUDA tensors on the current device launch K4 (fp32 FMA at every width:
-    it rounds neither queries nor codes, so its f32 surface is within
-    surface_delta of an exact evaluation); CPU tensors take the plain
-    version."""
+
+def surface_fp32(queries, codes, norms, valid, *, bits: int, metric: str,
+                 exact: bool):
+    """K4's fp32 kernel (csrc/surface.cu) on CUDA tensors, at any width: it
+    rounds neither queries nor codes, so its f32 surface is within
+    surface_delta of an exact evaluation."""
     global surface_launches
-    _check_scan_args(queries, codes, norms, valid, bits, 1)
-    if not _cuda_device(codes):
-        return score_surface_plain(queries, codes, norms, valid, bits=bits,
-                                   metric=metric, exact=exact)
     q = queries.shape[0]
     n, w = codes.shape
     qx, qn2, qsum, k_dims, scale, offset = _kernel_operands(
@@ -443,6 +490,36 @@ def score_surface(queries, codes, norms, valid, *, bits: int, metric: str,
     cuda_build.check(rc, "surface")
     surface_launches += 1
     return out
+
+
+def _score_surface(queries, codes, norms, valid, *, bits: int, metric: str,
+                   exact: bool = False):
+    """score_surface -> (surface, dq_rel): dq_rel is slice_queries' (Q,)
+    query-slicing error where the int8 route ran, else None."""
+    _check_scan_args(queries, codes, norms, valid, bits, 1)
+    route = _route(codes, bits)
+    if route == "plain":
+        return score_surface_plain(queries, codes, norms, valid, bits=bits,
+                                   metric=metric, exact=exact), None
+    if route == "i8":
+        return _surface_i8(queries, codes, norms, valid, metric=metric,
+                           exact=exact)
+    return surface_fp32(queries, codes, norms, valid, bits=bits,
+                        metric=metric, exact=exact), None
+
+
+def score_surface(queries, codes, norms, valid, *, bits: int, metric: str,
+                  exact: bool = False):
+    """(Q, D) f32 queries x (N, W) codes -> (Q, N) surrogate-distance
+    surface, invalid rows +inf: f32 when `exact`, else bf16 rounded from
+    the f32 value.
+
+    CUDA tensors on the current device launch K4 by `_route`: 8-bit codes
+    the int8 tensor-core route (within surface_delta with slice_queries'
+    dq_rel of an exact evaluation), other widths the fp32 kernel (within
+    surface_delta); CPU tensors take the plain version."""
+    return _score_surface(queries, codes, norms, valid, bits=bits,
+                          metric=metric, exact=exact)[0]
 
 
 # ---------------------------------------------------------------------------
@@ -499,7 +576,8 @@ def surface_accum_eps(dims: int) -> float:
 
 def surface_delta(qn2, norms, valid, *, metric: str, dims: int,
                   dq_rel=None, bits=None):
-    """Provable per-query bound (surrogate units) on K1's surface error.
+    """Provable per-query bound (surrogate units) on the error of the
+    surfaces of K1, K5/K6 and K4.
 
     The fp32 kernels round neither queries nor codes (codes are exact in
     f32 at every width), so their error is the f32 accumulation cushion
@@ -703,8 +781,9 @@ def surface_topk(queries, codes, norms, valid, *, bits: int, metric: str,
     smallest reranked surrogate among the S), and every row left out has a
     surface value no smaller than the largest selected one, s_max; so
     s_max > kth_exact + 1.1*delta (or s_max = +inf: only invalid rows were
-    left out) means none was missed.  S >= N selects every row (complete by
-    construction).  Where ok == 0 the caller re-dispatches with a wider
+    left out) means none was missed; delta is surface_delta with the dq_rel
+    of the route that computed the surface (_score_surface).  S >= N
+    selects every row (complete by construction).  Where ok == 0 the caller re-dispatches with a wider
     margin.  Invalid rows come back at +inf when fewer than kk rows are
     valid."""
     q0, d = queries.shape
@@ -713,7 +792,6 @@ def surface_topk(queries, codes, norms, valid, *, bits: int, metric: str,
     s = min(kk + max(margin, 0), n)
     queries = queries.to(torch.float32)
     qn2 = queries.square().sum(dim=-1)
-    delta = surface_delta(qn2, norms, valid, metric=metric, dims=d)
     chunk = surface_chunk(q0, n, s, budget_bytes)
     piece = rerank_piece(chunk, d, budget_bytes)
     parts = []
@@ -723,8 +801,12 @@ def surface_topk(queries, codes, norms, valid, *, bits: int, metric: str,
         if s >= n:
             cand = torch.arange(n, device=codes.device).expand(nq, n)
         else:
-            surf = score_surface(qc, codes, norms, valid, bits=bits,
-                                 metric=metric, exact=True)
+            surf, dq_rel = _score_surface(qc, codes, norms, valid, bits=bits,
+                                          metric=metric, exact=True)
+            # the int8 route's surface carries its query-slicing error
+            delta = surface_delta(qn2[a:a + chunk], norms, valid,
+                                  metric=metric, dims=d, dq_rel=dq_rel,
+                                  bits=bits)
             top = torch.topk(surf, s, dim=1, largest=False, sorted=False)
             del surf
             cand = top.indices
@@ -736,8 +818,7 @@ def surface_topk(queries, codes, norms, valid, *, bits: int, metric: str,
             ok = torch.ones((nq,), dtype=torch.int32, device=codes.device)
         else:
             kth_exact = torch.kthvalue(surr, kk, dim=1).values
-            ok = ((s_max > kth_exact + 1.1 * delta[a:a + chunk])
-                  | torch.isinf(s_max))
+            ok = (s_max > kth_exact + 1.1 * delta) | torch.isinf(s_max)
             if metric != "euclidean":
                 # a zero cosine query scores every row at exactly 1.0: any
                 # kk rows are the true top-kk

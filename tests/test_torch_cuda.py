@@ -36,7 +36,10 @@ def cuda():
     return torch.device("cuda")
 
 
-def _corpus(bits, n, d, q, seed, zero_query=True):
+def _corpus(bits, n, d, q, seed, zero_query=True, dead=(64, 96)):
+    """Uniform vectors with zero rows (every 97th), 5% invalid rows and the
+    wholly invalid rows dead[0]:dead[1]; query 0 is zero when
+    zero_query."""
     rng = np.random.default_rng(seed)
     db = rng.uniform(-1, 1, size=(n, d))
     db[::97] = 0.0
@@ -44,7 +47,7 @@ def _corpus(bits, n, d, q, seed, zero_query=True):
     if bits == 64:
         codes = np.float32(codes)
     valid = rng.random(n) > 0.05
-    valid[64:96] = False
+    valid[dead[0]:dead[1]] = False
     queries = np.float32(rng.uniform(-1, 1, size=(q, d)))
     if zero_query:
         queries[0] = 0.0
@@ -118,11 +121,13 @@ def test_i8_route_rejects_what_it_cannot_take(cuda):
         scan.segment_min_scan(*args, bits=8, metric="cosine")
 
 
-def _within_delta(got, want, tq, tn, tv, metric, d, extra=None):
+def _within_delta(got, want, tq, tn, tv, metric, d, extra=None, bits=None):
     """got (kernel) against want (plain, f64): identical +inf positions,
-    finite errors within surface_delta (+ `extra`, elementwise)."""
+    finite errors within surface_delta (+ `extra`, elementwise); at 8 bits
+    (the int8 route) with slice_queries' dq_rel."""
+    dq_rel = scan.slice_queries(tq)[2] if bits == 8 else None
     delta = scan.surface_delta(tq.square().sum(-1), tn, tv, metric=metric,
-                               dims=d)
+                               dims=d, dq_rel=dq_rel, bits=bits)
     assert torch.equal(torch.isinf(got), torch.isinf(want))
     fin = torch.isfinite(want)
     err = (got.double() - want).abs()
@@ -140,15 +145,18 @@ def test_free_seg_segmin_kernel_matches_plain(cuda, bits, seg, n, d, q):
     queries, codes, norms, valid = _corpus(bits, n, d, q, seed=seg)
     tq, tc, tn, tv = (torch.from_numpy(a).to(cuda)
                       for a in (queries, codes, norms, valid))
-    before = (scan.launches, scan.free_seg_launches)
+    before = (scan.launches, scan.free_seg_launches,
+              scan.i8_free_seg_launches)
     got = scan.segment_min_scan(tq, tc, tn, tv, bits=bits, metric=metric,
                                 seg=seg)
-    assert (scan.launches, scan.free_seg_launches) == \
-        (before[0], before[1] + 1)
+    # 8-bit codes take the int8 route at every segment length
+    assert (scan.launches, scan.free_seg_launches,
+            scan.i8_free_seg_launches) == \
+        (before[0], before[1] + 1, before[2] + (bits == 8))
     want = scan.segment_min_scan_plain(tq, tc, tn, tv, bits=bits,
                                        metric=metric, seg=seg,
                                        dtype=torch.float64)
-    _within_delta(got, want, tq, tn, tv, metric, d)
+    _within_delta(got, want, tq, tn, tv, metric, d, bits=bits)
     with pytest.raises(ValueError, match="16, 32, 64, 128"):
         scan.segment_min_scan(tq, tc, tn, tv, bits=bits, metric=metric,
                               seg=48 if n % 48 == 0 else 8)
@@ -162,10 +170,12 @@ def test_surface_kernel_matches_plain(cuda, bits, metric, exact, n, d, q):
     queries, codes, norms, valid = _corpus(bits, n, d, q, seed=bits + 1)
     tq, tc, tn, tv = (torch.from_numpy(a).to(cuda)
                       for a in (queries, codes, norms, valid))
-    before = scan.surface_launches
+    before = (scan.surface_launches, scan.i8_surface_launches)
     got = scan.score_surface(tq, tc, tn, tv, bits=bits, metric=metric,
                              exact=exact)
-    assert scan.surface_launches == before + 1
+    # 8-bit codes take the int8 route
+    assert (scan.surface_launches, scan.i8_surface_launches) == \
+        (before[0] + 1, before[1] + (bits == 8))
     assert got.dtype == (torch.float32 if exact else torch.bfloat16)
     want = scan.score_surface_plain(tq, tc, tn, tv, bits=bits, metric=metric,
                                     dtype=torch.float64)
@@ -178,7 +188,99 @@ def test_surface_kernel_matches_plain(cuda, bits, metric, exact, n, d, q):
                         torch.ones_like(want))
         half_ulp = torch.where(a > 0, torch.exp2(torch.floor(torch.log2(
             a.clamp_min(1e-30))) - 8), torch.zeros_like(a))
-    _within_delta(got.float(), want, tq, tn, tv, metric, d, half_ulp)
+    _within_delta(got.float(), want, tq, tn, tv, metric, d, half_ulp,
+                  bits=bits)
+
+
+def _half_ulp_bf16(a):
+    """Half a bf16 ulp at |a| (8 significant bits), 0 at 0."""
+    a = a.abs()
+    return torch.where(a > 0, torch.exp2(torch.floor(torch.log2(
+        a.clamp_min(1e-30))) - 8), torch.zeros_like(a))
+
+
+def _tight_on_q_hat(got, tq, tc, tn, tv, metric, d, seg=None, bf16=False):
+    """The int8 route against an f64 evaluation of the same formula on its
+    sliced queries q_hat with the unrounded |q|^2 and sum: within 4 f32
+    ulps of the surrogate's terms (bf16: plus half a bf16 ulp), identical
+    +inf positions.  seg=None: the full surface."""
+    slices, scale, _ = scan.slice_queries(tq)
+    qhat = scan.unslice_queries(slices, scale)[:, :d]
+    qn2 = tq.square().sum(-1)
+    terms = (qn2, tq.sum(-1))
+    if seg is None:
+        want = scan.score_surface_plain(qhat, tc, tn, tv, bits=8,
+                                        metric=metric, dtype=torch.float64,
+                                        query_terms=terms)
+    else:
+        want = scan.segment_min_scan_plain(qhat, tc, tn, tv, bits=8,
+                                           metric=metric, seg=seg,
+                                           dtype=torch.float64,
+                                           query_terms=terms)
+    got = got.double()
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    tol = 4 * 2.0 ** -24 * scan.i8_term_scale(qn2, tn, tv, metric=metric,
+                                              dims=d).double()[:, None]
+    fin = torch.isfinite(want)
+    err = torch.where(fin, (got - want).abs(), torch.zeros_like(want))
+    bound = tol.expand_as(err)
+    if bf16:
+        bound = bound + _half_ulp_bf16(torch.where(
+            fin, torch.maximum(want.abs(), got.abs()), torch.zeros_like(want)))
+    assert (err <= bound).all(), float((err / bound).max())
+    return want
+
+
+# (N, D, Q): D = 1504 runs the streamed-slice kernel
+_I8_TIGHT = [(4096, 384, 130), (1152, 33, 3), (2048, 768, 17),
+             (1024, 1504, 70)]
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+@pytest.mark.parametrize("seg", [16, 64, 128])
+@pytest.mark.parametrize("n,d,q", _I8_TIGHT)
+def test_i8_free_seg_kernel_tight_on_q_hat(cuda, seg, metric, n, d, q):
+    """K5/K6 on the int8 route, held as K1's is: a wholly invalid 128-row
+    block (a whole segment at every length), zero rows and a zero query."""
+    queries, codes, norms, valid = _corpus(8, n, d, q, seed=n + d + seg,
+                                           dead=(256, 384))
+    tq, tc, tn, tv = (torch.from_numpy(a).to(cuda)
+                      for a in (queries, codes, norms, valid))
+    before = scan.i8_free_seg_launches
+    got = scan.segment_min_scan(tq, tc, tn, tv, bits=8, metric=metric,
+                                seg=seg)
+    assert scan.i8_free_seg_launches == before + 1
+    assert got.shape == (q, n // seg)
+    assert torch.isinf(got[:, 256 // seg:384 // seg]).all()
+    _tight_on_q_hat(got, tq, tc, tn, tv, metric, d, seg=seg)
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("metric", ["euclidean", "cosine"])
+@pytest.mark.parametrize("n,d,q", _I8_TIGHT[:2] + [(1000, 33, 3)] +
+                         _I8_TIGHT[2:])
+def test_i8_surface_kernel_tight_on_q_hat(cuda, exact, metric, n, d, q):
+    """K4 on the int8 route, f32 and bf16 (N = 1000: a tail of 8 rows in
+    the last 32-row tile, never stored past N)."""
+    queries, codes, norms, valid = _corpus(8, n, d, q, seed=n + d + q,
+                                           dead=(256, 384))
+    tq, tc, tn, tv = (torch.from_numpy(a).to(cuda)
+                      for a in (queries, codes, norms, valid))
+    before = scan.i8_surface_launches
+    got = scan.score_surface(tq, tc, tn, tv, bits=8, metric=metric,
+                             exact=exact)
+    assert scan.i8_surface_launches == before + 1
+    assert got.shape == (q, n)
+    assert got.dtype == (torch.float32 if exact else torch.bfloat16)
+    assert torch.isinf(got[:, 256:384]).all()
+    want = _tight_on_q_hat(got, tq, tc, tn, tv, metric, d, bf16=not exact)
+    if not exact:
+        # the same f32 value rounded to nearest: within half a bf16 ulp of
+        # the f32 surface the f32 launch writes
+        f32 = scan.score_surface(tq, tc, tn, tv, bits=8, metric=metric,
+                                 exact=True)
+        fin = torch.isfinite(want)
+        assert torch.equal(got[fin], f32[fin].to(torch.bfloat16))
 
 
 @pytest.mark.parametrize("words", [5, 8])

@@ -1,7 +1,9 @@
-"""K1's int8 tensor-core route (syzgydb_tpu_torch/csrc/segmin_i8.cu) on the
-CPU: the query slicing it runs on (ops/scan.py::slice_queries), a plain
-emulation of the kernel's integer arithmetic against the JAX package's
-segment-min references, and the flag's bound with the slicing error.
+"""The int8 tensor-core route (syzgydb_tpu_torch/csrc/segmin_i8.cu: K1,
+K5/K6 and K4 on 8-bit codes) on the CPU: the query slicing it runs on
+(ops/scan.py::slice_queries), a plain emulation of the kernel's integer
+arithmetic against the JAX package's segment-min and surface references,
+and the flags' bound with the slicing error (fused_scan_topk and
+surface_topk).
 
 The kernel itself runs only on the card (tests/test_torch_cuda.py).  Here
 its arithmetic is emulated exactly as it is done there: int64 products of
@@ -14,6 +16,9 @@ slicing error dq_rel, and the reference's with its bf16 query rounding or
 none for its exact surface); against an exact evaluation of the same
 formula on q_hat the emulation lies within 4 f32 ulps of the surrogate's
 terms (i8_term_scale)."""
+
+import importlib.util
+import os
 
 import jax.numpy as jnp
 import numpy as np
@@ -28,6 +33,17 @@ from syzgydb_tpu_torch.ops import scan as tscan
 SEG = tscan.DEFAULT_SEG
 METRICS = ["euclidean", "cosine"]
 ULP = 2.0 ** -24
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(scope="module")
+def superseded():
+    """tools_dev/superseded_kernels.py (K5/K6's reference), loaded by path."""
+    path = os.path.join(ROOT, "tools_dev", "superseded_kernels.py")
+    spec = importlib.util.spec_from_file_location("superseded_kernels", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def _queries(q, d, seed, magnitude=1.0):
@@ -101,10 +117,11 @@ def _corpus(n=4096, d=48, q=5, seed=0):
     return queries, codes, norms, valid
 
 
-def _emulate_i8(queries, codes, norms, valid, metric):
-    """The int8 route's arithmetic in plain PyTorch: int64 products of the
-    slices with the codes, the exact combine, one rounding to f32, the f32
-    epilogue with the f32 affine constants the kernel is passed."""
+def _emulate_i8_surface(queries, codes, norms, valid, metric):
+    """The int8 route's arithmetic in plain PyTorch, as the full (Q, N) f32
+    surface K4 writes: int64 products of the slices with the codes, the
+    exact combine, one rounding to f32, the f32 epilogue with the f32
+    affine constants the kernel is passed."""
     tq = torch.from_numpy(queries)
     d = queries.shape[1]
     slices, scale, _ = tscan.slice_queries(tq)
@@ -124,9 +141,15 @@ def _emulate_i8(queries, codes, norms, valid, metric):
         inv = torch.rsqrt(torch.where(den > 0, den, torch.ones_like(den)))
         cos = torch.where(den > 0, dots * inv, torch.full_like(dots, -1.0))
         s = (1.0 - cos.clamp(-1.0, 1.0)) * 0.5
-    s = torch.where(torch.from_numpy(valid)[None, :], s,
-                    torch.full_like(s, np.inf))
-    return s.reshape(len(queries), -1, SEG).amin(-1).numpy()
+    return torch.where(torch.from_numpy(valid)[None, :], s,
+                       torch.full_like(s, np.inf))
+
+
+def _emulate_i8(queries, codes, norms, valid, metric, seg=SEG):
+    """The int8 route's segment minima (K1 at seg 32, K5/K6 at 16/64/128),
+    folded from the emulated surface."""
+    s = _emulate_i8_surface(queries, codes, norms, valid, metric)
+    return s.reshape(len(queries), -1, seg).amin(-1).numpy()
 
 
 def _port_delta(queries, norms, valid, metric):
@@ -258,3 +281,140 @@ def test_cpu_route_carries_no_slicing_error():
     np.testing.assert_array_equal(
         out.numpy(), tscan.segment_min_scan_plain(
             *args, bits=8, metric="cosine").numpy())
+
+
+@pytest.mark.parametrize("d", [48, 33])
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("seg", [16, 64, 128])
+@pytest.mark.parametrize("kernel", ["segment_min_scan",
+                                    "segment_min_scan_nat"])
+def test_emulation_matches_superseded_free_seg_kernels(superseded, kernel,
+                                                       seg, metric, d):
+    """K5/K6 on the int8 route: the emulation's minima at seg 16/64/128
+    against the archived TPU kernels in interpret mode (which round
+    queries to bf16 for 8-bit codes), within the sum of the two bounds."""
+    queries, codes, norms, valid = _corpus(d=d, q=8, seed=seg + d)
+    valid[128 * 5:128 * 6] = False  # a wholly invalid segment at every seg
+    got = _emulate_i8(queries, codes, norms, valid, metric, seg=seg)
+    assert got.shape == (8, 4096 // seg)
+    assert np.isinf(got[:, 128 * 5 // seg:128 * 6 // seg]).all()
+    ref = np.asarray(getattr(superseded, kernel)(
+        jnp.asarray(queries), jnp.asarray(codes), jnp.asarray(norms),
+        jnp.asarray(valid), bits=8, metric=metric, block_n=1024, seg=seg,
+        interpret=True))
+    _assert_within(got, ref,
+                   _port_delta(queries, norms, valid, metric) +
+                   _jax_delta(queries, norms, valid, metric, bf16=True))
+
+
+@pytest.mark.parametrize("d", [48, 33])
+@pytest.mark.parametrize("metric", METRICS)
+def test_emulated_surface_matches_jax_surface_kernel(metric, d):
+    """K4 on the int8 route: the emulated f32 surface against
+    pallas_scan.score_surface(exact=True) in interpret mode, within the
+    port's bound with dq_rel plus the reference's exact-surface bound."""
+    queries, codes, norms, valid = _corpus(d=d, q=8, seed=10 + d)
+    got = _emulate_i8_surface(queries, codes, norms, valid, metric).numpy()
+    ref = np.asarray(jscan.score_surface(
+        jnp.asarray(queries), jnp.asarray(codes), jnp.asarray(norms),
+        jnp.asarray(valid), bits=8, metric=metric, block_n=1024, exact=True,
+        interpret=True))
+    assert np.isinf(got[:, SEG * 3:SEG * 4]).all()
+    _assert_within(got, ref,
+                   _port_delta(queries, norms, valid, metric) +
+                   _jax_delta(queries, norms, valid, metric, bf16=False))
+
+
+def _near_tie_cut(surf, surr, delta_base, delta_wide):
+    """(kk, margin) whose cut lands between the flag's two bounds: the
+    (kk+margin)-th smallest surface value s_max exceeds the kk-th smallest
+    reranked surrogate among the selected rows by more than 1.1 x the
+    bound without slicing error and by less than 1.1 x the bound with it
+    (a quarter of that window clear of each end)."""
+    order = torch.argsort(surf)
+    lo, hi = 1.1 * delta_base, 1.1 * delta_wide
+    for kk in range(100, 800):
+        for margin in range(1, 64):
+            s = kk + margin
+            gap = float(surf[order[s - 1]]) - float(
+                torch.kthvalue(surr[order[:s]], kk).values)
+            if gap > hi:
+                break
+            if lo + (hi - lo) / 4 < gap < hi - (hi - lo) / 4:
+                return kk, margin
+    raise AssertionError("no cut between the two bounds on this corpus")
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_surface_topk_flag_takes_the_routes_dq_rel(monkeypatch, metric):
+    """surface_topk (the non-fused K4 branch) must bound its cut with the
+    dq_rel of the route that computed the surface.  _score_surface stands
+    in for the int8 route: the emulated surface with slice_queries' dq_rel,
+    for a query whose last slice leaves half-unit remainders (q_0 = 1 sets
+    the scale to 2^-6, so that unit is 2^-20).  At a near-tie cut the
+    widened bound must refuse the proof that the bound without the slicing
+    error would give, and escalating the margin proves the rows of the
+    complete selection."""
+    rng = np.random.default_rng(31)
+    n, d = 4096, 48
+    _, codes, norms = tdist.ingest_reprs(rng.uniform(-1, 1, size=(n, d)), 8)
+    valid = np.ones(n, dtype=bool)
+    q = np.float32((rng.integers(-8, 8, size=(1, d)) + 0.5) * 2.0 ** -20)
+    q[0, 0] = 1.0
+    surf = _emulate_i8_surface(q, codes, norms, valid, metric)
+    args = [torch.from_numpy(a) for a in (q, codes, norms, valid)]
+    dq = tscan.slice_queries(args[0])[2]
+    qn2 = args[0].square().sum(-1)
+    base, wide = (float(tscan.surface_delta(
+        qn2, args[2], args[3], metric=metric, dims=d, dq_rel=x, bits=8)[0])
+        for x in (None, dq))
+    assert wide > base
+    _, surr = tscan._rerank_rows(args[0], torch.arange(n)[None], *args[1:],
+                                 bits=8, metric=metric, piece=n)
+    kk, margin = _near_tie_cut(surf[0], surr[0], base, wide)
+
+    def route(dq_rel):
+        def fake(queries, codes, norms, valid, *, bits, metric, exact=False):
+            assert exact and bits == 8
+            return surf.clone(), dq_rel
+        return fake
+
+    # no slicing error in the bound: this cut would be proven
+    monkeypatch.setattr(tscan, "_score_surface", route(None))
+    assert tscan.surface_topk(*args, bits=8, metric=metric, k=kk,
+                              margin=margin)[2].tolist() == [1]
+    # with the route's dq_rel it must not be
+    monkeypatch.setattr(tscan, "_score_surface", route(dq))
+    assert tscan.surface_topk(*args, bits=8, metric=metric, k=kk,
+                              margin=margin)[2].tolist() == [0]
+    want = tscan.surface_topk(*args, bits=8, metric=metric, k=kk, margin=n)
+    for m in (64, 512, n):
+        dist, rows, ok = tscan.surface_topk(*args, bits=8, metric=metric,
+                                            k=kk, margin=m)
+        if int(ok[0]):
+            break
+    assert int(ok[0])
+    assert torch.equal(rows, want[1]) and torch.equal(dist, want[0])
+
+
+def test_fused_scan_flag_takes_the_routes_dq_rel(monkeypatch):
+    """fused_scan_topk at a free segment length (K5/K6's entry point) passes
+    _segment_min's dq_rel to the flag's bound, as at seg 32."""
+    queries, codes, norms, valid = _corpus(n=2048, q=3, seed=12)
+    args = [torch.from_numpy(a) for a in (queries, codes, norms, valid)]
+    dq = tscan.slice_queries(args[0])[2]
+    seen = []
+    real = tscan.surface_delta
+
+    def spy(*a, dq_rel=None, **kw):
+        seen.append(dq_rel)
+        return real(*a, dq_rel=dq_rel, **kw)
+
+    monkeypatch.setattr(tscan, "surface_delta", spy)
+    monkeypatch.setattr(tscan, "_segment_min", lambda *a, seg, **kw: (
+        torch.from_numpy(_emulate_i8(queries, codes, norms, valid, "cosine",
+                                     seg=seg)), dq))
+    for seg in (16, 64, 128):
+        tscan.fused_scan_topk(*args, bits=8, metric="cosine", k=5, seg=seg,
+                              with_ties=True)
+    assert len(seen) == 3 and all(x is dq for x in seen)

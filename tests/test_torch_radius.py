@@ -418,23 +418,26 @@ def noisy_k4(monkeypatch):
     """Kernel K4 at the edge of its error bound: the plain f32 surface plus
     a seeded uniform error of up to 0.9 x surface_delta on every finite
     entry, so the surface and the rerank's formula disagree by
-    rounding-sized amounts at the kk-th row.  Counts its calls."""
-    real = tscan.score_surface
+    rounding-sized amounts at the kk-th row.  It stands in for
+    _score_surface, which surface_topk calls (with the route's dq_rel,
+    None on the CPU).  Counts its calls."""
+    real = tscan._score_surface
     gen = torch.Generator().manual_seed(77)
     calls = [0]
 
     def noisy(queries, codes, norms, valid, *, bits, metric, exact=False):
         calls[0] += 1
-        out = real(queries, codes, norms, valid, bits=bits, metric=metric,
-                   exact=exact)
+        out, dq_rel = real(queries, codes, norms, valid, bits=bits,
+                           metric=metric, exact=exact)
         delta = tscan.surface_delta(queries.square().sum(-1), norms, valid,
-                                    metric=metric, dims=queries.shape[1])
+                                    metric=metric, dims=queries.shape[1],
+                                    dq_rel=dq_rel, bits=bits)
         u = torch.rand(out.shape, generator=gen, dtype=torch.float64)
         noise = (0.9 * (2.0 * u - 1.0) * delta.double()[:, None])
         return torch.where(torch.isfinite(out), out + noise.to(out.dtype),
-                           out)
+                           out), dq_rel
 
-    monkeypatch.setattr(tscan, "score_surface", noisy)
+    monkeypatch.setattr(tscan, "_score_surface", noisy)
     return calls
 
 
