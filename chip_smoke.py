@@ -19,8 +19,9 @@ JAX or of the JAX package.  Phases, each of which fails the run:
      dq_rel in that bound and also within 4 f32 ulps of the surrogate's
      terms of an f64 evaluation on its sliced queries q_hat: K1 and K5/K6
      at both metrics and Q in {64, 1024}, K4 at both metrics and Q in
-     {8, 128}.  K2 (Hamming, f32) and K3 (Hamming, uint8, wrapping at 256)
-     bit for bit.
+     {8, 128}.  K2 (Hamming, f32 and bf16) and K3 (Hamming, uint8,
+     wrapping at 256) bit for bit at W = 1..8 with Q and N tails and rows
+     one bit away from a query at every bit.
   3. main path: a 1,000,000 x 384 cosine 8-bit collection of clustered unit
      vectors made from a seed, ingested through Collection.add_documents
      with metadata {"i": n}, queried with search_many at precision high
@@ -42,7 +43,9 @@ JAX or of the JAX package.  Phases, each of which fails the run:
      plain versions, a library call and their bounds on the H100 (K1 at
      Q = 1024, 64 and 8, K4 f32 at Q = 128 and 8, K5/K6 at seg 16, 64 and
      128 and Q = 1024, each beside its 3-slice int8 floor, and the fp32
-     kernels of K1, K4 and K5/K6 at one shape each);
+     kernels of K1, K4 and K5/K6 at one shape each; K2 in bf16 and f32 at
+     Q = 8 and 1 and K3 at Q = 64, beside torch._int_mm on pre-unpacked
+     bits);
      end-to-end ms per batch and QPS; the first filter mask's build time;
      the radius group's device transient against core/capacity.py's
      estimate.
@@ -69,7 +72,6 @@ import torch
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
-CUDA_CORE_OPS = 67e12  # 32-bit CUDA-core rate (fp32 FMA issue rate)
 
 N_ROWS, DIMS, K = 1_000_000, 384, 10
 N_CENTERS = 4096
@@ -386,43 +388,66 @@ def check_kernels(dev, n: int = 65536, batches=(64, 1024)) -> dict:
     log(f"K4: {surf_runs} configurations within their bound of f64 (f32 "
         f"max |err| {surf_err:.3g}, max err/bound {surf_ratio:.3g})")
 
-    ham_err = 0.0
-    for w, q in ((5, 1), (5, 64), (7, 1024)):
-        qc = rng.integers(0, 2**32, size=(q, w), dtype=np.uint32)
-        h = rng.integers(0, 2**32, size=(n, w), dtype=np.uint32)
-        h[:q] = qc  # distance 0 rows
-        valid = rng.random(n) > 0.01
-        tqc = torch.from_numpy(qc.view(np.int32)).to(dev)
-        th = torch.from_numpy(h.view(np.int32)).to(dev)
-        tv = torch.from_numpy(valid).to(dev)
-        got = hamming_scan.hamming_scores(tqc, th, tv)
-        want = hamming_scan.hamming_scores_plain(tqc, th, tv)
-        if not torch.equal(got, want):
-            raise AssertionError(f"K2 differs from its plain version "
-                                 f"(W={w}, Q={q})")
-        ham_err = max(ham_err, float((got - want).abs().max()))
-    log("K2: bit-exact against its plain version")
-
-    u8_err = 0
-    for w, q in ((5, 64), (8, 64)):
-        qc = rng.integers(0, 2**32, size=(q, w), dtype=np.uint32)
-        h = rng.integers(0, 2**32, size=(n, w), dtype=np.uint32)
-        h[:q] = ~qc  # 32 * W: wraps to 0 at W = 8
-        tqc = torch.from_numpy(qc.view(np.int32)).to(dev)
-        th = torch.from_numpy(h.view(np.int32)).to(dev)
-        got = hamming_scan.hamming_scores_u8(tqc, th)
-        want = hamming_scan.hamming_scores_u8_plain(tqc, th)
-        u8_err = max(u8_err, u8_abs_err(got, want))
-        if not torch.equal(got, want):
-            raise AssertionError(f"K3 differs from its plain version "
-                                 f"(W={w}, Q={q})")
-        if int(got[0, 0]) != (32 * w) % 256:
-            raise AssertionError(f"K3 count at W={w} does not wrap as the "
-                                 f"TPU kernel's uint8 cast")
-    log("K3: bit-exact against its plain version (the W=8 wrap included)")
+    ham_err, u8_err, ham_runs = check_hamming(dev, rng)
+    log(f"K2 (f32 and bf16) and K3: bit-exact against their plain versions "
+        f"in {ham_runs} configurations (W = 1..8, Q and N tails, one-bit "
+        f"rows, invalid rows, the W=8 wrap)")
     return {"segmin": seg_err, "hamming": ham_err, "free_seg": free_err,
-            "surface": surf_err, "hamming_u8": float(u8_err),
+            "surface": surf_err, "hamming_u8": u8_err,
             "segmin_i8_ulp_ratio": i8_ulp}
+
+
+def check_hamming(dev, rng, n: int = 65533):
+    """K2 (f32 and bf16) and K3 against their plain versions, bit for bit,
+    at W = 1..8 and Q in {1, 7, 64, 129} on N rows (a tail past every
+    16-row tile and 16-byte run), with rows one bit away from query 0 at
+    every bit (each must read 1: the kernel's bit -> k mapping), the
+    complement of query 1 (32 W: 256 wraps to 0 in K3 at W = 8) and 1%
+    invalid rows.  -> (K2 max |err|, K3 max |err|, configurations)."""
+    from syzgydb_tpu_torch.ops import hamming_scan
+
+    ham_err, u8_err, runs = 0.0, 0, 0
+    for w in range(1, 9):
+        h = rng.integers(0, 2**32, size=(n, w), dtype=np.uint32)
+        valid = rng.random(n) > 0.01
+        tv = torch.from_numpy(valid).to(dev)
+        for q in (1, 7, 64, 129):
+            qc = rng.integers(0, 2**32, size=(q, w), dtype=np.uint32)
+            for b in range(32 * w):
+                h[b] = qc[0]
+                h[b, b // 32] ^= np.uint32(1) << np.uint32(b % 32)
+            if q > 1:
+                h[32 * w] = ~qc[1]
+            tqc = torch.from_numpy(qc.view(np.int32)).to(dev)
+            th = torch.from_numpy(h.view(np.int32)).to(dev)
+            what = f"W={w}, Q={q}, N={n}"
+            for dt in (torch.float32, torch.bfloat16):
+                got = hamming_scan.hamming_scores(tqc, th, tv, out_dtype=dt)
+                want = hamming_scan.hamming_scores_plain(tqc, th, tv,
+                                                         out_dtype=dt)
+                if got.dtype != dt or not torch.equal(got, want):
+                    raise AssertionError(f"K2 ({dt}) differs from its plain "
+                                         f"version ({what})")
+                ham_err = max(ham_err, float((got.float() - want.float())
+                                             .abs().max()))
+                ones = got[0, :32 * w][tv[:32 * w]]
+                if not bool((ones == 1).all()):
+                    raise AssertionError(f"K2 ({dt}): a one-bit row does not "
+                                         f"read 1 ({what})")
+            got = hamming_scan.hamming_scores_u8(tqc, th)
+            want = hamming_scan.hamming_scores_u8_plain(tqc, th)
+            u8_err = max(u8_err, u8_abs_err(got, want))
+            if not torch.equal(got, want):
+                raise AssertionError(f"K3 differs from its plain version "
+                                     f"({what})")
+            if not bool((got[0, :32 * w] == 1).all()):
+                raise AssertionError(f"K3: a one-bit row does not read 1 "
+                                     f"({what})")
+            if q > 1 and int(got[1, 32 * w]) != (32 * w) % 256:
+                raise AssertionError(f"K3 count at W={w} does not wrap as "
+                                     f"the TPU kernel's uint8 cast")
+            runs += 3
+    return ham_err, float(u8_err), runs
 
 
 # ---------------------------------------------------------------------------
@@ -928,11 +953,101 @@ def bound(ops: float, nbytes: float, rate: float = BF16_FLOPS) -> dict:
             "bound_by": "operations" if t_ops > t_bytes else "bytes"}
 
 
+def int_mm_ms(hashes, qcodes) -> float:
+    """The library yardstick of K2 and K3: torch._int_mm of the rows' bits
+    unpacked beforehand to an (N, 32 W) int8 0/1 matrix with the (32 W, Q)
+    +-1 query matrix (Q a multiple of 8).  The same product as the kernels'
+    (popc(q) aside) without their unpacking, reading 8x the sketch bytes;
+    checked once against the plain counts."""
+    from syzgydb_tpu_torch.ops import hamming_scan
+
+    shifts = torch.arange(32, dtype=torch.int32, device=hashes.device)
+
+    def bits(x):
+        return ((x[:, :, None] >> shifts) & 1).reshape(x.shape[0], -1)
+
+    rows = bits(hashes).to(torch.int8)
+    qb = bits(qcodes)
+    qpm = (1 - 2 * qb).to(torch.int8)  # (Q, 32 W), row-major
+    got = torch._int_mm(rows, qpm.t()) + qb.sum(1).to(torch.int32)[None, :]
+    want = hamming_scan._hamming_counts(qcodes, hashes)
+    if not torch.equal(got.t().to(torch.int64), want):
+        raise AssertionError("the _int_mm yardstick does not compute the "
+                             "Hamming counts")
+    del got, want
+    ms = cuda_ms(lambda: torch._int_mm(rows, qpm.t()), reps=20)
+    del rows
+    return ms
+
+
+def hamming_times(coll, state, tq, dev) -> dict:
+    """K2 (bf16, the medium route's form, and f32) at Q = 8 and 1, and K3
+    at Q = 64, on the 1M state: bit-exact against the plain versions, then
+    timed beside them, the _int_mm yardstick and their bounds (the
+    surface's bytes at each form's width: 2, 4 or 1 a value)."""
+    from syzgydb_tpu_torch.ops import hamming_scan
+
+    hashes, valid = state["hashes"], state["valid"]
+    n, w = hashes.shape
+    out = {}
+    qcode = torch.from_numpy(coll.index.encode_np(
+        tq[:64].cpu().numpy()).view(np.int32)).to(dev)
+    for q in (8, 1):
+        qc = qcode[:q].contiguous()
+        for dt, tag, size in ((torch.bfloat16, "", 2),
+                              (torch.float32, "_f32", 4)):
+            got = hamming_scan.hamming_scores(qc, hashes, valid, out_dtype=dt)
+            if not torch.equal(got, hamming_scan.hamming_scores_plain(
+                    qc, hashes, valid, out_dtype=dt)):
+                raise AssertionError(f"K2 ({dt}) differs from its plain "
+                                     f"version on the main path's state "
+                                     f"(Q={q})")
+            del got
+            out[f"hamming{tag}_q{q}"] = {
+                "ms": cuda_ms(lambda: hamming_scan.hamming_scores(
+                    qc, hashes, valid, out_dtype=dt), reps=20),
+                **bound(2.0 * q * n * 32 * w,
+                        4 * n * w + n + 4 * q * w + size * q * n, INT8_OPS)}
+    out["hamming_q8"]["plain_ms"] = cuda_ms(
+        lambda: hamming_scan.hamming_scores_plain(
+            qcode[:8], hashes, valid, out_dtype=torch.bfloat16), reps=5)
+    out["hamming_q8"]["library_ms"] = int_mm_ms(hashes, qcode[:8])
+    log("K2 at the main path's shapes: bit-exact against its plain version "
+        "(bf16 and f32, Q = 8 and 1); ms " + ", ".join(
+            f"{k} {out[k]['ms']:.4f} (bound {out[k]['bound_ms']:.4f})"
+            for k in ("hamming_q8", "hamming_f32_q8", "hamming_q1",
+                      "hamming_f32_q1")) +
+        f"; _int_mm Q=8 {out['hamming_q8']['library_ms']:.4f}")
+
+    # K3: uint8 surface at Q = 64, W = 5 (no count reaches 256)
+    q = 64
+    got = hamming_scan.hamming_scores_u8(qcode, hashes)
+    want = hamming_scan.hamming_scores_u8_plain(qcode, hashes)
+    out["hamming_u8_max_abs_err"] = u8_abs_err(got, want)
+    if not torch.equal(got, want):
+        raise AssertionError("K3 differs from its plain version on the main "
+                             "path's state (Q=64)")
+    del got, want
+    out["hamming_u8_q64"] = {
+        "ms": cuda_ms(lambda: hamming_scan.hamming_scores_u8(qcode, hashes),
+                      reps=20),
+        "plain_ms": cuda_ms(lambda: hamming_scan.hamming_scores_u8_plain(
+            qcode, hashes), reps=3),
+        "library_ms": int_mm_ms(hashes, qcode),
+        **bound(2.0 * q * n * 32 * w, 4 * n * w + 4 * q * w + q * n,
+                INT8_OPS)}
+    log(f"K3 at the main path's shapes: bit-exact against its plain version; "
+        f"ms Q=64 {out['hamming_u8_q64']['ms']:.4f} (bound "
+        f"{out['hamming_u8_q64']['bound_ms']:.4f}, _int_mm "
+        f"{out['hamming_u8_q64']['library_ms']:.4f})")
+    return out
+
+
 def kernel_times(coll, state, tq, dev) -> dict:
     """All six kernels on the ingested state at the main path's query
     counts: each held against its plain version (K1/K4/K5/K6 within the
     flag's bound of an f64 evaluation, K2/K3 bit for bit), then timed."""
-    from syzgydb_tpu_torch.ops import hamming_scan, scan
+    from syzgydb_tpu_torch.ops import scan
 
     codes, norms, valid = state["codes"], state["norms"], state["valid"]
     n, d = codes.shape
@@ -980,53 +1095,7 @@ def kernel_times(coll, state, tq, dev) -> dict:
         f"; fp32 kernel Q=1024 {out['segmin_q1024']['fp32_kernel_ms']:.3f}")
     del cb
 
-    qcode = torch.from_numpy(coll.index.encode_np(
-        tq[:8].cpu().numpy()).view(np.int32)).to(dev)
-    hashes = state["hashes"]
-    w = hashes.shape[1]
-    for q in (8, 1):
-        qc = qcode[:q].contiguous()
-        if not torch.equal(hamming_scan.hamming_scores(qc, hashes, valid),
-                           hamming_scan.hamming_scores_plain(qc, hashes,
-                                                             valid)):
-            raise AssertionError(f"K2 differs from its plain version on the "
-                                 f"main path's state (Q={q})")
-        ms = cuda_ms(lambda: hamming_scan.hamming_scores(qc, hashes, valid),
-                     reps=20)
-        # the (Q, N) surface counted at 2 bytes a value: every distance
-        # (<= 32*W, or 16384 for an invalid row) is exact in bf16, which
-        # the replaced TPU kernel writes; K2's f32 store moves twice that
-        nbytes = 4 * n * w + n + 4 * q * w + 2 * q * n
-        ops = 2.0 * q * n * w
-        out[f"hamming_q{q}"] = {
-            "ms": ms, "bound_ms": max(nbytes / HBM_BYTES_S,
-                                      ops / CUDA_CORE_OPS) * 1e3,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_S >
-            ops / CUDA_CORE_OPS else "operations"}
-    log("K2 at the main path's shapes: bit-exact against its plain version")
-    out["hamming_q8"]["plain_ms"] = cuda_ms(
-        lambda: hamming_scan.hamming_scores_plain(qcode, hashes, valid),
-        reps=5)
-
-    # K3: uint8 surface at Q = 64, W = 5 (no count reaches 256)
-    qc64 = torch.from_numpy(coll.index.encode_np(
-        tq[:64].cpu().numpy()).view(np.int32)).to(dev)
-    got = hamming_scan.hamming_scores_u8(qc64, hashes)
-    want = hamming_scan.hamming_scores_u8_plain(qc64, hashes)
-    out["hamming_u8_max_abs_err"] = u8_abs_err(got, want)
-    if not torch.equal(got, want):
-        raise AssertionError("K3 differs from its plain version on the main "
-                             "path's state (Q=64)")
-    del got, want
-    q = 64
-    out["hamming_u8_q64"] = {
-        "ms": cuda_ms(lambda: hamming_scan.hamming_scores_u8(qc64, hashes),
-                      reps=20),
-        "plain_ms": cuda_ms(lambda: hamming_scan.hamming_scores_u8_plain(
-            qc64, hashes), reps=3),
-        **bound(2.0 * q * n * w, 4 * n * w + 4 * q * w + q * n,
-                CUDA_CORE_OPS)}
-    log("K3 at the main path's shapes: bit-exact against its plain version")
+    out.update(hamming_times(coll, state, tq, dev))
 
     # K4 on the int8 route: the exact f32 surface at Q = 128 (the radius
     # group's chunk) and Q = 8 (radius high's escalation), held both ways
@@ -1167,12 +1236,13 @@ def main() -> int:
             launches["segmin_i8"],
             max(errs["segmin"], times["segmin_max_abs_err"]), seg,
             seg["library_ms"]),
+        # K2's row is its bf16 form at Q = 8, the medium route's launch
         row("hamming", "hamming.cu", "syzgydb_tpu/ops/pallas_hamming.py:42",
-            launches["hamming"], errs["hamming"], ham, None),
+            launches["hamming"], errs["hamming"], ham, ham["library_ms"]),
         row("hamming_u8", "hamming.cu",
             "syzgydb_tpu/ops/pallas_hamming.py:27", launches["hamming_u8"],
             max(errs["hamming_u8"], times["hamming_u8_max_abs_err"]), ham8,
-            None),
+            ham8["library_ms"]),
         # K4 and K5/K6 on the main path (8-bit codes) are the int8 route
         row("surface", "segmin_i8.cu", "syzgydb_tpu/ops/pallas_scan.py:272",
             launches["surface"],

@@ -88,11 +88,13 @@ def _dequantize_device(codes: torch.Tensor, bits: int,
 def hamming_candidates(qcodes: torch.Tensor, db_hashes: torch.Tensor,
                        valid: torch.Tensor, budget: int):
     """Top-`budget` rows by Hamming distance of packed sketches ->
-    (distances, rows), both (Q, budget).  The surface is kernel K2; the
-    selection is an exact torch.topk (the JAX package selects with
-    approx_min_k at recall_target 0.95, so the port may pick better
+    (distances, rows), both (Q, budget).  The surface is kernel K2 in bf16
+    (every count, and 16384, is exact in it: half the f32 surface's
+    bytes); the selection is an exact torch.topk (the JAX package selects
+    with approx_min_k at recall_target 0.95, so the port may pick better
     candidates, never worse)."""
-    ham = hamming_scan.hamming_scores(qcodes, db_hashes, valid)
+    ham = hamming_scan.hamming_scores(qcodes, db_hashes, valid,
+                                      out_dtype=torch.bfloat16)
     vals, idx = torch.topk(ham, budget, dim=1, largest=False, sorted=False)
     return vals, idx
 

@@ -13,8 +13,8 @@ evaluation of the same formula, with identical +inf positions; K1's int8
 route also within 4 f32 ulps of the surrogate's terms (i8_term_scale) of
 an f64 evaluation on its sliced queries q_hat, which a fault in the
 fragment layout would break; K4's bf16 surface within its bound plus half
-a bf16 ulp of the value; K2's and K3's integer counts must match
-exactly."""
+a bf16 ulp of the value; K2's (f32 and bf16) and K3's integer counts must
+match exactly."""
 
 import numpy as np
 import pytest
@@ -313,6 +313,83 @@ def test_hamming_kernel_bit_exact(cuda, words):
     got = hamming_scan.hamming_scores(*args)
     assert hamming_scan.launches == before + 1
     assert torch.equal(got, hamming_scan.hamming_scores_plain(*args))
+
+
+def _one_bit_rows(qcode):
+    """32 W rows that each differ from `qcode` (W,) in exactly one bit."""
+    w = len(qcode)
+    rows = np.repeat(qcode[None, :], 32 * w, axis=0)
+    for b in range(32 * w):
+        rows[b, b // 32] ^= np.uint32(1) << np.uint32(b % 32)
+    return rows
+
+
+def _hamming_all_forms(qc, h, valid):
+    """K2 (f32, bf16) and K3 on CUDA tensors, each held bit for bit against
+    its plain version and counted once; -> the three surfaces."""
+    out = []
+    for form in (torch.float32, torch.bfloat16, None):
+        before = (hamming_scan.launches, hamming_scan.u8_launches)
+        if form is None:
+            got = hamming_scan.hamming_scores_u8(qc, h)
+            want = hamming_scan.hamming_scores_u8_plain(qc, h)
+            assert hamming_scan.u8_launches == before[1] + 1
+        else:
+            got = hamming_scan.hamming_scores(qc, h, valid, out_dtype=form)
+            want = hamming_scan.hamming_scores_plain(qc, h, valid,
+                                                     out_dtype=form)
+            assert hamming_scan.launches == before[0] + 1
+        assert got.dtype == want.dtype
+        assert torch.equal(got, want), (form, tuple(qc.shape), h.shape[0])
+        out.append(got)
+    return out
+
+
+@pytest.mark.parametrize("n", [1000, 5000, 65536])
+@pytest.mark.parametrize("words", range(1, 9))
+def test_hamming_tc_kernels_bit_exact(cuda, words, n):
+    """The tensor-core K2 (f32 and bf16) and K3 at Q = 1, 7, 8, 40, 64, 129
+    (Q and N tails), with rows one bit away from query 0 at every bit, the
+    complement of query 1 (256 wraps to 0 at W = 8) and invalid rows."""
+    rng = np.random.default_rng(1000 * words + n)
+    h = rng.integers(0, 2**32, size=(n, words), dtype=np.uint32)
+    valid = rng.random(n) > 0.05
+    th_valid = torch.from_numpy(valid).to(cuda)
+    for q in (1, 7, 8, 40, 64, 129):
+        qc = rng.integers(0, 2**32, size=(q, words), dtype=np.uint32)
+        h[:32 * words] = _one_bit_rows(qc[0])
+        if q > 1:
+            h[32 * words] = ~qc[1]
+        tqc = torch.from_numpy(qc.view(np.int32)).to(cuda)
+        th = torch.from_numpy(h.view(np.int32)).to(cuda)
+        f32, _, u8 = _hamming_all_forms(tqc, th, th_valid)
+        assert (u8[0, :32 * words] == 1).all()
+        if q > 1:
+            assert int(u8[1, 32 * words]) == (32 * words) % 256
+
+
+def test_hamming_tc_kernels_misaligned_views(cuda):
+    """A hashes view 20 bytes into its storage (W = 5: not 16-byte aligned)
+    is refused before any launch (the kernel bulk-copies whole blocks from
+    a 16-byte aligned start), and a validity view at an odd address is
+    re-aligned by the wrapper and runs, counted once a launch."""
+    rng = np.random.default_rng(77)
+    n, words, q = 5000, 5, 40
+    qc = torch.from_numpy(rng.integers(0, 2**32, size=(q, words),
+                                       dtype=np.uint32).view(np.int32)).to(cuda)
+    h = rng.integers(0, 2**32, size=(n + 1, words), dtype=np.uint32)
+    valid = rng.random(n + 1) > 0.05
+    full = torch.from_numpy(h.view(np.int32)).to(cuda)
+    tv = torch.from_numpy(valid).to(cuda)[1:]
+    assert full[1:].is_contiguous() and full[1:].data_ptr() % 16 != 0
+    assert tv.data_ptr() % 16 != 0
+    before = (hamming_scan.launches, hamming_scan.u8_launches)
+    with pytest.raises(ValueError):
+        hamming_scan.hamming_scores(qc, full[1:], tv)
+    with pytest.raises(ValueError):
+        hamming_scan.hamming_scores_u8(qc, full[1:])
+    assert (hamming_scan.launches, hamming_scan.u8_launches) == before
+    _hamming_all_forms(qc, full[:n], tv)
 
 
 def test_wrappers_reject_cuda_input_they_cannot_take(cuda):

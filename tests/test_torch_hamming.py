@@ -2,9 +2,12 @@
 hamming.py, ops/hamming_scan.py) against the JAX package's.
 
 Sketch bits and Hamming counts are integers: both compare bit for bit,
-the f32 surface of K2 (hamming_scores) and the uint8 surface of K3
-(hamming_scores_u8, which wraps a count of 256 to 0 as the JAX function's
-uint8 cast does).
+the f32 and bf16 surfaces of K2 (hamming_scores) and the uint8 surface of
+K3 (hamming_scores_u8, which wraps a count of 256 to 0 as the JAX
+function's uint8 cast does).  On the card both are int8 tensor-core
+products of unpacked sketch bits (csrc/hamming.cu); _emulate_tc_hamming
+repeats that arithmetic, with the kernel's bit -> k mapping, in integers
+here, against the JAX kernels in interpret mode.
 Candidate SETS are not compared — the JAX package selects with
 approx_min_k (recall_target 0.95) where the port takes an exact topk — so
 the selection is held to recall instead."""
@@ -115,6 +118,96 @@ def test_plain_u8_hamming_matches_jax_kernel(words):
                 torch.from_numpy(hashes.view(np.int32)), ones).numpy())
 
 
+# csrc/hamming.cu's bit -> k mapping within a word: k = 16 h + 4 t + j
+# holds bit 8 j + 4 h + t (h < 2, t < 4, j < 4)
+_K_BIT = np.array([8 * (k % 4) + 4 * (k // 16) + (k % 16) // 4
+                   for k in range(32)])
+
+
+def _unpack_k(words: np.ndarray) -> torch.Tensor:
+    """(R, W) uint32 -> (R, 32 W) int64 0/1 bits in the kernel's k order."""
+    bits = (words[:, :, None] >> _K_BIT[None, None, :].astype(np.uint32)) & 1
+    return torch.from_numpy(bits.reshape(len(words), -1).astype(np.int64))
+
+
+def _emulate_tc_hamming(qcodes: np.ndarray, hashes: np.ndarray):
+    """The kernel's arithmetic in integers: popc(q) + sum_k (1 - 2 q_k) r_k
+    over the unpacked bits (an int64 matmul standing in for the int8
+    mma.sync products) -> (Q, N) int64 counts."""
+    qb, rb = _unpack_k(qcodes), _unpack_k(hashes)
+    return qb.sum(dim=1, keepdim=True) + (1 - 2 * qb) @ rb.T
+
+
+def _one_bit_rows(qcode: np.ndarray) -> np.ndarray:
+    """32 W rows that each differ from `qcode` (W,) in exactly one bit, at
+    every bit of every word."""
+    w = len(qcode)
+    rows = np.repeat(qcode[None, :], 32 * w, axis=0)
+    for b in range(32 * w):
+        rows[b, b // 32] ^= np.uint32(1) << np.uint32(b % 32)
+    return rows
+
+
+def _tc_case(words: int, seed: int):
+    """Queries, rows (one-bit rows of query 0, the complement of query 1,
+    then random) and validity with 40 invalid rows, N = 512."""
+    rng = np.random.default_rng(seed)
+    q, n = 5, 512
+    qcodes = rng.integers(0, 2**32, size=(q, words), dtype=np.uint32)
+    hashes = rng.integers(0, 2**32, size=(n, words), dtype=np.uint32)
+    hashes[:32 * words] = _one_bit_rows(qcodes[0])
+    hashes[32 * words] = ~qcodes[1]  # 32 * W: 256 wraps to 0 at W = 8
+    hashes[32 * words + 1] = qcodes[2]  # 0
+    valid = np.ones(n, dtype=bool)
+    valid[rng.choice(np.arange(32 * words + 2, n), 40, replace=False)] = False
+    return qcodes, hashes, valid
+
+
+@pytest.mark.parametrize("words", range(1, 9))
+def test_tc_emulation_matches_jax_kernels(words):
+    """The kernel's integer arithmetic (bit -> k mapping shared by A and B,
+    popc(q) once per query) against the JAX K2 (bf16 and f32) and K3, bit
+    for bit; each one-bit row reads 1 (a mapping that A and B did not share
+    would keep the total but move single bits)."""
+    qcodes, hashes, valid = _tc_case(words, 100 + words)
+    counts = _emulate_tc_hamming(qcodes, hashes)
+    assert (counts[0, :32 * words] == 1).all()
+    assert counts[1, 32 * words] == 32 * words
+    assert counts[2, 32 * words + 1] == 0
+    tv = torch.from_numpy(valid)
+    args = (jnp.asarray(qcodes), jnp.asarray(hashes))
+    for dt, jdt in ((torch.bfloat16, jnp.bfloat16),
+                    (torch.float32, jnp.float32)):
+        want = np.asarray(jph.hamming_scores_bf16(
+            *args, jnp.asarray(valid), words=words, block_n=256,
+            interpret=True, out_dtype=jdt)).astype(np.float32)
+        got = torch.where(tv[None, :], counts.to(dt),
+                          torch.full(counts.shape, 16384.0, dtype=dt))
+        np.testing.assert_array_equal(got.float().numpy(), want)
+    want = np.asarray(jph.hamming_scores(*args, words=words, block_n=256,
+                                         interpret=True))
+    np.testing.assert_array_equal((counts & 0xFF).to(torch.uint8).numpy(),
+                                  want)
+    assert int(want[1, 32 * words]) == (32 * words) % 256
+
+
+@pytest.mark.parametrize("words", [1, 5, 8])
+def test_plain_bf16_hamming_matches_jax_kernel(words):
+    qcodes, hashes, valid = _tc_case(words, 200 + words)
+    want = np.asarray(jph.hamming_scores_bf16(
+        jnp.asarray(qcodes), jnp.asarray(hashes), jnp.asarray(valid),
+        words=words, block_n=256, interpret=True))
+    assert want.dtype == jnp.bfloat16
+    got = hamming_scan.hamming_scores(
+        torch.from_numpy(qcodes.view(np.int32)),
+        torch.from_numpy(hashes.view(np.int32)), torch.from_numpy(valid),
+        out_dtype=torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  want.astype(np.float32))
+    assert (got[0, :32 * words] == 1).all()
+
+
 def test_hamming_wrapper_rejects_bad_input():
     qc = torch.zeros((2, 5), dtype=torch.int32)
     h = torch.zeros((8, 5), dtype=torch.int32)
@@ -129,13 +222,16 @@ def test_hamming_wrapper_rejects_bad_input():
         hamming_scan.hamming_scores_u8(qc, h[:, :4])
     with pytest.raises(TypeError):
         hamming_scan.hamming_scores_u8(qc, h.to(torch.int16))
+    with pytest.raises(ValueError):
+        hamming_scan.hamming_scores(qc, h, torch.ones(8, dtype=bool),
+                                    out_dtype=torch.float16)
 
 
 def test_candidates_and_rerank_recall_vs_jax():
     """Medium's two stages on identical sketches and codes: the port's
     exact selection must recall the true top-10 at least as well as the
     JAX package's approximate one, and its candidates must be the rows of
-    least Hamming distance."""
+    least Hamming distance on the bf16 surface it selects from."""
     rng = np.random.default_rng(8)
     n, dims, q, budget, k = 8192, 64, 8, 512, 10
     centers = rng.standard_normal((64, dims))
@@ -163,10 +259,12 @@ def test_candidates_and_rerank_recall_vs_jax():
     tv = torch.from_numpy(valid)
     hvals, tcand = tham.hamming_candidates(
         torch.from_numpy(qcode.view(np.int32)), th, tv, budget)
+    assert hvals.dtype == torch.bfloat16
     surface = hamming_scan.hamming_scores(
-        torch.from_numpy(qcode.view(np.int32)), th, tv)
-    kth = torch.kthvalue(surface, budget, dim=1).values
-    assert (hvals.max(dim=1).values == kth).all()
+        torch.from_numpy(qcode.view(np.int32)), th, tv,
+        out_dtype=torch.bfloat16)
+    kth = torch.kthvalue(surface.float(), budget, dim=1).values
+    assert (hvals.float().max(dim=1).values == kth).all()
     td, tr, cnt = tham.rerank_topk(tq, torch.from_numpy(codes),
                                    torch.from_numpy(norms), tv, tcand, 8,
                                    "cosine", k, with_counts=True)
