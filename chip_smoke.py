@@ -38,6 +38,31 @@ JAX or of the JAX package.  Phases, each of which fails the run:
      fp32 kernel at seg 32; both radius phases must run K4's int8 route,
      the seg-64 ops phase K5/K6's, and the fp32 K4 and K5/K6 kernels must
      launch nowhere.
+  3b. serving: the port's REST server (syzgydb_tpu_torch.server.rest) on
+     CUDA with the 1M collection registered as "smoke", driven by 32
+     keep-alive HTTP clients (one http.client connection per thread):
+     (a) k = 10 at high, 512 requests, then each client's 16 four times
+     (2048), every top-10 the fp64 oracle's and percent_searched 100, then
+     the 2048 under torch.profiler for their kernel time (the host share is
+     taken over the wall without the profiler); (b) 512 requests at the
+     server's default precision (medium), recall >= 0.99, then one client
+     alone (16 requests: lone queries on the sketch index, K2); (c) radius
+     at high, 16 clients x 8, radii at ~50 rows (client 0: ~2000 rows, so
+     its groups escalate into K4), id sets equal to the oracle's; (d)
+     k = 10 at high with the filter i < 500000, filtered top-10 the
+     oracle's.  Per
+     sub-phase: QPS over the whole window and while every client is in
+     flight, p50/p99 on the client clock, queries per batcher dispatch,
+     K1/K2/K4 launches, and how many result fetches were enqueued behind a
+     later group's dispatch (FetchWatch).  Then a REST flow at the
+     server's defaults (quantization 64: K1 on csrc/segmin.cu) on a second
+     data folder: create, 8 inserts of 1024 corpus rows, 64 concurrent
+     high searches at recall 1.0, a metadata update, a record delete, ids
+     and stats, a restart from the folder with the same answers, and the
+     collection's delete (rest_flow_steps, which the card test
+     tests/test_torch_cuda.py runs too).  Any non-2xx status or client
+     exception fails
+     the run; every kernel of the serving path must launch in it.
   4. kernels at the main path's shapes: all six on the ingested state held
      against their plain versions as in phase 2, then timed beside the
      plain versions, a library call and their bounds on the H100 (K1 at
@@ -48,10 +73,13 @@ JAX or of the JAX package.  Phases, each of which fails the run:
      bits);
      end-to-end ms per batch and QPS; the first filter mask's build time;
      the radius group's device transient against core/capacity.py's
-     estimate.
+     estimate; and the fp32 kernels at the other widths (K1 at Q = 1024
+     and 64, K4 at Q = 128 and 16, bits 4, 16, 32 and 64, 1,048,576 x 384
+     seeded synthetic codes), each held against its plain version on
+     65,536 rows, beside fp32 (TF32 off) and bf16 torch.matmul.
 
-The line before the last is {"kernels": [...]}; the last line is
-{"ok": true, "device": {...}}.
+The report line (serving numbers under "serving") comes before the
+{"kernels": [...]} line, and the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -71,6 +99,7 @@ import torch
 # H100 SXM data-sheet peaks (dense): bytes/s and the rates bounds use
 HBM_BYTES_S = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12  # outside the tensor cores
 INT8_OPS = 1979e12
 
 N_ROWS, DIMS, K = 1_000_000, 384, 10
@@ -541,6 +570,27 @@ def set_recall(results, truth) -> float:
                           for res, t in zip(results, truth)]))
 
 
+def counters() -> dict:
+    """Every kernel wrapper's launch count."""
+    from syzgydb_tpu_torch.ops import hamming_scan, scan
+
+    return {"segmin": scan.launches, "segmin_i8": scan.i8_launches,
+            "hamming": hamming_scan.launches,
+            "hamming_u8": hamming_scan.u8_launches,
+            "surface": scan.surface_launches,
+            "surface_i8": scan.i8_surface_launches,
+            "segmin_free_seg": scan.free_seg_launches,
+            "segmin_free_seg_i8": scan.i8_free_seg_launches}
+
+
+def reset_counters() -> None:
+    from syzgydb_tpu_torch.ops import hamming_scan, scan
+
+    scan.launches = scan.free_seg_launches = scan.surface_launches = 0
+    scan.i8_launches = scan.i8_free_seg_launches = scan.i8_surface_launches = 0
+    hamming_scan.launches = hamming_scan.u8_launches = 0
+
+
 def main_path(dev, report: dict):
     import syzgydb_tpu_torch as tdb
     from syzgydb_tpu_torch.core import capacity
@@ -560,25 +610,15 @@ def main_path(dev, report: dict):
         coll.add_documents(ids, db[a:a + step],
                            [b'{"i":%d}' % i for i in ids])
     report["ingest_s"] = time.perf_counter() - t0
+    flow_rows = db[:FLOW_ROWS].copy()  # the serving phase's REST flow
     del db
     log(f"ingested {N_ROWS} rows in {report['ingest_s']:.1f} s "
         f"(capacity {coll.columns.capacity})")
 
     # every kernel's count starts at 0 here and is read after the last
     # phase; the oracle between phases launches none of them
-    scan.launches = scan.free_seg_launches = scan.surface_launches = 0
-    scan.i8_launches = scan.i8_free_seg_launches = scan.i8_surface_launches = 0
-    hamming_scan.launches = hamming_scan.u8_launches = 0
+    reset_counters()
     counts = {}
-
-    def counters():
-        return {"segmin": scan.launches, "segmin_i8": scan.i8_launches,
-                "hamming": hamming_scan.launches,
-                "hamming_u8": hamming_scan.u8_launches,
-                "surface": scan.surface_launches,
-                "surface_i8": scan.i8_surface_launches,
-                "segmin_free_seg": scan.free_seg_launches,
-                "segmin_free_seg_i8": scan.i8_free_seg_launches}
 
     def phase(name, fn):
         c0 = counters()
@@ -839,7 +879,7 @@ def main_path(dev, report: dict):
             rq["high"], radius_plan["high"][0], "high"))),
         ("radius_exact_batch8", lambda: coll.radius_many(rargs(
             rq["exact"], radius_plan["exact"][0], "exact")))])
-    return coll, tmp, state, tq, launches
+    return coll, tmp, state, tq, launches, flow_rows
 
 
 def check_radius_and_filters(coll, oracle, queries, rad, radius_plan, flt,
@@ -942,8 +982,587 @@ def profile_batches(coll, batches) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3b: serving over HTTP
+# ---------------------------------------------------------------------------
+
+N_CLIENTS = 32
+FLOW_ROWS, FLOW_BATCH = 8192, 1024
+
+
+def http_clients(port: int, bodies: list, path: str) -> tuple:
+    """One keep-alive http.client connection per client thread, each
+    POSTing its JSON bodies in turn, all released together.  -> (parsed
+    responses per client, latencies in ms on the client clock, wall s,
+    steady QPS).  The steady QPS counts the answers between the moment
+    every client has its first one and the moment the first client is
+    done, when all of them are in flight: the closed loop's start and
+    drain are left out.  Any non-2xx status, or any exception in a
+    client, fails the run."""
+    import http.client
+    import threading
+
+    n = len(bodies)
+    out, lat, errors = [None] * n, [[] for _ in range(n)], []
+    ends = [[] for _ in range(n)]
+    gate = threading.Barrier(n + 1, timeout=60)
+
+    def client(c):
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+            gate.wait()
+            res = []
+            for body in bodies[c]:
+                t0 = time.perf_counter()
+                conn.request("POST", path, body=json.dumps(body),
+                             headers={"Content-Type": "application/json"})
+                resp = conn.getresponse()
+                data = resp.read()
+                ends[c].append(time.perf_counter())
+                lat[c].append((ends[c][-1] - t0) * 1000.0)
+                if resp.status // 100 != 2:
+                    raise AssertionError(f"HTTP {resp.status} from {path}: "
+                                         f"{data[:300]!r}")
+                res.append(json.loads(data))
+            conn.close()
+            out[c] = res
+        except BaseException as exc:  # re-raised by the caller below
+            errors.append(exc)
+            gate.abort()
+
+    threads = [threading.Thread(target=client, args=(c,)) for c in range(n)]
+    for t in threads:
+        t.start()
+    gate.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errors:
+        raise errors[0]
+    lo, hi = max(e[0] for e in ends), min(e[-1] for e in ends)
+    steady = sum(lo < t <= hi for e in ends for t in e) / (hi - lo) \
+        if hi > lo else None
+    return out, [x for c in lat for x in c], wall, steady
+
+
+def http_call(port: int, method: str, path: str, body=None, want=None):
+    """One request on its own connection -> parsed JSON; a status other than
+    `want` (or any non-2xx when want is None) fails the run."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    conn.request(method, path, body=None if body is None else
+                 json.dumps(body), headers={"Content-Type":
+                                            "application/json"})
+    resp = conn.getresponse()
+    data = resp.read()
+    conn.close()
+    if (resp.status != want) if want else resp.status // 100 != 2:
+        raise AssertionError(f"HTTP {resp.status} from {method} {path}: "
+                             f"{data[:300]!r}")
+    return json.loads(data)
+
+
+def start_http(srv):
+    import threading
+
+    from syzgydb_tpu_torch.server import rest
+
+    httpd = rest.make_http_server(srv, "127.0.0.1", 0)
+    threading.Thread(target=httpd.serve_forever, daemon=True).start()
+    return httpd, httpd.server_address[1]
+
+
+class FetchWatch:
+    """Times every result fetch of a collection and counts, for each, the
+    dispatches of other groups enqueued after its own group's dispatch:
+    before the fetch started (its copies then wait on the one CUDA stream
+    for those later groups' kernels as well), and while it ran (a fetch is
+    three copies, so a dispatch between them may delay the later ones)."""
+
+    def __init__(self, coll):
+        import threading
+
+        self.coll, self.rows = coll, []
+        self.lock, self.seq, self.taken = threading.Lock(), 0, 0
+        self.local = threading.local()
+
+        def dispatch(fn):
+            def wrapped(*a, **kw):
+                with self.lock:
+                    self.seq += 1
+                    self.local.mark = self.seq
+                return fn(*a, **kw)
+            return wrapped
+
+        fetch = coll._fetch_results
+
+        def timed_fetch(*a, **kw):
+            with self.lock:
+                seq0 = self.seq
+                later = seq0 - getattr(self.local, "mark", seq0)
+            t0 = time.perf_counter()
+            out = fetch(*a, **kw)
+            ms = (time.perf_counter() - t0) * 1000.0
+            with self.lock:
+                self.rows.append((later, self.seq - seq0, ms))
+            return out
+
+        coll._knn_many_async = dispatch(coll._knn_many_async)
+        coll._radius_many_async = dispatch(coll._radius_many_async)
+        coll._fetch_results = timed_fetch
+
+    def take(self) -> dict:
+        with self.lock:
+            rows, self.rows = self.rows, []
+            dispatches, self.taken = self.seq - self.taken, self.seq
+        behind = [ms for later, during, ms in rows if later or during]
+        alone = [ms for later, during, ms in rows if not (later or during)]
+        return {"dispatches": dispatches, "fetches": len(rows),
+                "after_a_later_dispatch": sum(r[0] > 0 for r in rows),
+                "a_later_dispatch_during": sum(r[1] > 0 for r in rows),
+                "mean_ms_behind_later": float(np.mean(behind))
+                if behind else None,
+                "mean_ms_alone": float(np.mean(alone)) if alone else None}
+
+    def remove(self) -> None:
+        for name in ("_knn_many_async", "_radius_many_async",
+                     "_fetch_results"):
+            delattr(self.coll, name)
+
+
+def serve_phase(name, srv, port, bodies, watch, out: dict) -> list:
+    """Drive one sub-phase; record QPS, p50/p99, queries per dispatch, the
+    kernels' launches and the fetches.  -> every response, in client
+    order.  A sub-phase whose dispatches FetchWatch did not see (its hooks
+    no longer on the path) fails."""
+    c0, b0 = counters(), (srv.batcher.queries, srv.batcher.dispatches)
+    res, lat, wall, steady = http_clients(port, bodies,
+                                          "/api/v1/collections/smoke/search")
+    torch.cuda.synchronize()
+    c1 = counters()
+    queries = srv.batcher.queries - b0[0]
+    dispatches = srv.batcher.dispatches - b0[1]
+    fetch = watch.take()
+    if dispatches and not (fetch["dispatches"] and fetch["fetches"]):
+        raise AssertionError(f"serving {name}: FetchWatch saw {fetch} behind "
+                             f"{dispatches} batcher dispatches")
+    out[name] = {
+        "requests": len(lat), "clients": len(bodies), "wall_s": wall,
+        "qps": len(lat) / wall, "steady_qps": steady,
+        "p50_ms": float(np.percentile(lat, 50)),
+        "p99_ms": float(np.percentile(lat, 99)),
+        "batched_queries": queries, "dispatches": dispatches,
+        "queries_per_dispatch": queries / dispatches if dispatches else None,
+        "launches": {k: c1[k] - c0[k] for k in ("segmin_i8", "hamming",
+                                                "surface_i8")},
+        "fetch": fetch}
+    log(f"serving {name}: {out[name]}")
+    return [r for client in res for r in client]
+
+
+def serve_recall(res, truth) -> float:
+    return float(np.mean([len({r["id"] for r in x["results"]} & t) / K
+                          for x, t in zip(res, truth)]))
+
+
+def check_serving_launches(c: dict) -> None:
+    """The serving path's kernels: K1 on both routes (the int8 one for the
+    8-bit collection, segmin.cu for the 64-bit REST flow), K2 and K4."""
+    fp32 = c["segmin"] - c["segmin_i8"]
+    if min(c["segmin_i8"], fp32, c["hamming"], c["surface_i8"]) == 0:
+        raise AssertionError(f"a kernel of the serving path was not launched "
+                             f"in its run: {c}")
+
+
+def serving(coll, tmp, queries, flow_rows, dev, report: dict) -> None:
+    """Phase 3b: the 1M collection behind the port's REST server, driven by
+    32 keep-alive HTTP clients, then a REST flow at the server's defaults
+    on a second data folder (see rest_flow)."""
+    from syzgydb_tpu_torch.server import rest
+
+    oracle = oracle_vectors(coll, dev)
+    srv = rest.Server(data_folder=tmp, device=dev)
+    srv.collections["smoke"] = coll  # the open collection: no second replay
+    httpd, port = start_http(srv)
+    watch = FetchWatch(coll)
+    out = {"batcher": {"window_s": srv.batcher.window_s,
+                       "max_batch": srv.batcher.max_batch}}
+    reset_counters()
+
+    def knn(qi, **kw):
+        return {"vector": queries[qi].tolist(), "k": K, **kw}
+
+    q512 = [[c * 16 + r for r in range(16)] for c in range(N_CLIENTS)]
+    order = [qi for c in q512 for qi in c]
+    truth = oracle_top10(oracle, queries[:512])
+    try:
+        # (a) high: the exact top-10 of every request; the first pass warms
+        # the request threads (each makes its first CUDA and cuBLAS calls),
+        # the second sends each client's 16 queries 4 times, so that the
+        # closed loop's start and drain are a small part of its window
+        bodies_a = [[knn(qi, precision="high") for qi in c] for c in q512]
+        for name, rounds in (("a_high_first_pass", 1), ("a_high", 4)):
+            res = serve_phase(name, srv, port, [b * rounds for b in bodies_a],
+                              watch, out)
+            out[name]["recall_at_10"] = rec = serve_recall(
+                res, [truth[qi] for c in q512 for qi in c * rounds])
+            pct = {x["percent_searched"] for x in res}
+            if rec < 1.0 or pct != {100.0}:
+                raise AssertionError(f"serving {name}: recall {rec}, "
+                                     f"percent_searched {pct}")
+        # the same traffic under torch.profiler for its kernel time; the
+        # host share is taken over the wall of the run without the profiler,
+        # which lengthens the wall (its overhead is reported beside it)
+        prof = profile_batches(coll, [("serving_high", lambda: http_clients(
+            port, [b * 4 for b in bodies_a],
+            "/api/v1/collections/smoke/search"))])
+        out["a_high"]["profile"] = prof = prof["serving_high"]
+        if prof["device_busy_ms"] is not None:
+            a = out["a_high"]
+            a["host_share"] = 1.0 - prof["device_busy_ms"] / (
+                1000.0 * a["wall_s"])
+            a["host_share_profiler_on"] = 1.0 - prof["busy_share"]
+            a["profiler_wall_over_wall"] = prof["wall_ms"] / (
+                1000.0 * a["wall_s"])
+        watch.take()
+
+        # (b) the server's default precision (medium), 32 clients, then one
+        # client alone: lone queries take the sketch index (K2)
+        res = serve_phase("b_default", srv, port,
+                          [[knn(qi) for qi in c] for c in q512], watch, out)
+        out["b_default"]["recall_at_10"] = serve_recall(
+            res, [truth[i] for i in order])
+        res = serve_phase("b_default_one_client", srv, port,
+                          [[knn(512 + r) for r in range(16)]], watch, out)
+        out["b_default_one_client"]["recall_at_10"] = serve_recall(
+            res, oracle_top10(oracle, queries[512:528]))
+        for name in ("b_default", "b_default_one_client"):
+            if out[name]["recall_at_10"] < 0.99:
+                raise AssertionError(f"serving {name}: recall below 0.99 "
+                                     f"({out[name]['recall_at_10']})")
+
+        # (c) radius at high: 16 clients x 8; client 0's radii hold ~2000
+        # rows (its groups escalate past the fused bound into K4), the
+        # others' ~50
+        rq = queries[528:656]
+        wide, narrow = oracle_radius(oracle, rq[:8], 2000), \
+            oracle_radius(oracle, rq[8:], 50)
+        radii, sets = wide[0] + narrow[0], wide[1] + narrow[1]
+        bodies_c = [[{"vector": rq[c * 8 + r].tolist(),
+                      "radius": radii[c * 8 + r], "precision": "high"}
+                     for r in range(8)] for c in range(16)]
+        res = serve_phase("c_radius_high", srv, port, bodies_c, watch, out)
+        got = [{r["id"] for r in x["results"]} for x in res]
+        out["c_radius_high"]["set_recall"] = float(np.mean(
+            [len(g & t) / len(t) for g, t in zip(got, sets)]))
+        out["c_radius_high"]["sizes"] = [min(map(len, sets)),
+                                         max(map(len, sets))]
+        if got != sets:
+            raise AssertionError("serving radius: id sets differ from the "
+                                 "fp64 oracle's")
+
+        # (d) high with a filter: the filtered top-10
+        half = N_ROWS // 2
+        keep = torch.from_numpy(coll.columns.ids[:coll.columns.size]
+                                < half).to(dev)
+        ftruth = oracle_top10(oracle, queries[:512], keep)
+        res = serve_phase("d_filtered_high", srv, port,
+                          [[knn(qi, precision="high",
+                                filter=f"i < {half}") for qi in c]
+                           for c in q512], watch, out)
+        out["d_filtered_high"]["recall_at_10"] = rec = serve_recall(
+            res, [ftruth[i] for i in order])
+        if rec < 1.0 or any(r["id"] >= half for x in res
+                            for r in x["results"]):
+            raise AssertionError(f"serving filtered high: recall {rec}")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        watch.remove()
+    del oracle
+    out["flow"] = rest_flow(flow_rows, queries[:64], dev)
+    out["launches"] = launches = counters()
+    check_serving_launches(launches)
+    report["serving"] = out
+
+
+def flow_oracle(rows: np.ndarray, queries: np.ndarray, dev,
+                drop=()) -> list:
+    """fp64 cosine top-10 ids (= row numbers) of the flow's rows."""
+    v = torch.from_numpy(rows).to(dev, torch.float64)
+    v = v / v.norm(dim=1, keepdim=True)
+    q = torch.from_numpy(queries).to(dev, torch.float64)
+    q = q / q.norm(dim=1, keepdim=True)
+    d = torch.acos((q @ v.T).clamp_(-1.0, 1.0))
+    d[:, list(drop)] = np.inf
+    return [set(r) for r in torch.topk(d, K, largest=False).indices.cpu()
+            .tolist()]
+
+
+def json_keys(x):
+    """The key structure of a JSON value: dicts by their keys in order,
+    lists by their first element, scalars by their type."""
+    if isinstance(x, dict):
+        return [(k, json_keys(v)) for k, v in x.items()]
+    if isinstance(x, list):
+        return [json_keys(v) for v in x[:1]]
+    return type(x).__name__
+
+
+def rest_flow_steps(folder: str, rows: np.ndarray, dev, search,
+                    insert_batch: int) -> list:
+    """The REST flow at the server's defaults (no quantization: 64-bit
+    codes, K1 on csrc/segmin.cu) through the port's server on `dev`, in the
+    empty data folder `folder`: create, inserts of `insert_batch` rows with
+    metadata {"i": n}, search("first", srv, port), a metadata update, a
+    record delete, ids and stats, search("edited", srv, port), a restart
+    from the folder, search("reopened", srv, port), the edited record found
+    again, and the collection's delete.  `search` sends its own searches
+    (the serving phase's and the card test's differ) to the server `srv`
+    listening on `port` and returns their responses.  Any
+    unexpected status or answer fails.  -> the JSON key structure of every
+    response, in order."""
+    from syzgydb_tpu_torch.server import rest
+
+    base, n = "/api/v1/collections", len(rows)
+    shapes = []
+
+    def call(port, method, path, body=None, want=None):
+        res = http_call(port, method, path, body, want)
+        shapes.append(json_keys(res))
+        return res
+
+    def serve():
+        srv = rest.make_server(folder, device=dev)
+        return (srv, *start_http(srv))
+
+    def stop(srv, httpd):
+        httpd.shutdown()
+        httpd.server_close()
+        for c in srv.collections.values():
+            c.close()
+
+    srv, httpd, port = serve()
+    try:
+        call(port, "POST", base, {"name": "flow", "vector_size":
+                                  rows.shape[1], "distance_function":
+                                  "cosine"}, 201)
+        for a in range(0, n, insert_batch):
+            call(port, "POST", f"{base}/flow/records", [
+                {"id": i, "vector": rows[i].tolist(), "metadata": {"i": i}}
+                for i in range(a, min(a + insert_batch, n))], 201)
+        shapes += map(json_keys, search("first", srv, port))
+        call(port, "PUT", f"{base}/flow/records/5/metadata",
+             {"metadata": {"i": 5, "edited": True}}, 200)
+        call(port, "DELETE", f"{base}/flow/records/7", want=200)
+        ids = call(port, "GET", f"{base}/flow/ids")
+        info = call(port, "GET", f"{base}/flow")
+        if ids != [i for i in range(n) if i != 7] or \
+                (info["document_count"], info["quantization"]) != (n - 1, 64):
+            raise AssertionError(f"flow: ids or stats wrong after the edits "
+                                 f"({len(ids)} ids, {info})")
+        shapes += map(json_keys, search("edited", srv, port))
+    finally:
+        stop(srv, httpd)
+    srv, httpd, port = serve()
+    try:
+        if srv.collections["flow"].device.type != torch.device(dev).type:
+            raise AssertionError("flow: the reopened collection left the "
+                                 "server's device")
+        shapes += map(json_keys, search("reopened", srv, port))
+        info = call(port, "GET", f"{base}/flow")
+        five = call(port, "POST", f"{base}/flow/search", {
+            "vector": rows[5].tolist(), "k": 1, "precision": "high"})
+        if info["document_count"] != n - 1 or \
+                [(r["id"], r["metadata"]) for r in five["results"]] != \
+                [(5, {"i": 5, "edited": True})]:
+            raise AssertionError(f"flow: the reopened server answers "
+                                 f"differently ({info}, {five})")
+        call(port, "DELETE", f"{base}/flow", want=200)
+        if os.path.exists(os.path.join(folder, "flow.dat")):
+            raise AssertionError("flow: DELETE left the collection file")
+    finally:
+        stop(srv, httpd)
+    return shapes
+
+
+def rest_flow(rows: np.ndarray, queries: np.ndarray, dev) -> dict:
+    """rest_flow_steps on the corpus's first 8192 rows, in 8 inserts of
+    1024, each search step 64 concurrent high searches that must run the
+    fp32 K1 (csrc/segmin.cu) and no int8 launch, at recall 1.0 against the
+    fp64 oracle; the reopened server returns the edited one's ids and
+    distances."""
+    from syzgydb_tpu_torch.ops import scan
+
+    path = "/api/v1/collections/flow/search"
+    bodies = [[{"vector": q.tolist(), "k": K, "precision": "high"}]
+              for q in queries]
+    out, got = {}, {}
+
+    def search(tag, srv, port):
+        if tag == "first":
+            out["create_insert_s"] = time.perf_counter() - t0
+        c0 = counters()
+        res, lat, wall, _ = http_clients(port, bodies, path)
+        torch.cuda.synchronize()
+        c1 = counters()
+        got[tag] = res = [x[0] for x in res]
+        out[tag] = {"wall_s": wall, "p50_ms": float(np.percentile(lat, 50)),
+                    "fp32_launches": (c1["segmin"] - c1["segmin_i8"]) -
+                    (c0["segmin"] - c0["segmin_i8"]),
+                    "i8_launches": c1["segmin_i8"] - c0["segmin_i8"]}
+        if out[tag]["fp32_launches"] == 0 or out[tag]["i8_launches"]:
+            raise AssertionError(f"flow {tag}: K1 did not run segmin.cu "
+                                 f"alone ({out[tag]})")
+        return res
+
+    folder = tempfile.mkdtemp(prefix="syzgy_flow_")
+    try:
+        t0 = time.perf_counter()
+        rest_flow_steps(folder, rows, dev, search, FLOW_BATCH)
+    finally:
+        shutil.rmtree(folder, ignore_errors=True)
+    truth = flow_oracle(rows, queries, dev)
+    edited = flow_oracle(rows, queries, dev, drop=(7,))
+    for tag, t in (("first", truth), ("edited", edited),
+                   ("reopened", edited)):
+        out[tag]["recall_at_10"] = serve_recall(got[tag], t)
+    # distance changes in surrogate units, (1 - cos) / 2
+    diff = max(abs(np.cos(np.pi * a["distance"]) -
+                   np.cos(np.pi * b["distance"])) / 2.0
+               for x, y in zip(got["edited"], got["reopened"])
+               for a, b in zip(x["results"], y["results"]))
+    out["reopened"]["max_surrogate_change"] = float(diff)
+    log(f"serving flow (quantization 64): {out}")
+    if [[r["id"] for r in x["results"]] for x in got["reopened"]] != \
+            [[r["id"] for r in x["results"]] for x in got["edited"]] or \
+            diff > 2 * scan.surface_accum_eps(DIMS):
+        raise AssertionError(f"flow: the reopened server answers differently "
+                             f"({diff})")
+    recs = [out[t]["recall_at_10"] for t in ("first", "edited", "reopened")]
+    if min(recs) < 1.0:
+        raise AssertionError(f"flow: recall below 1.0 ({recs})")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel times at the main path's shapes
 # ---------------------------------------------------------------------------
+
+def fp32_width_times(tq, dev, n: int = 1 << 20) -> dict:
+    """The fp32 kernels at the widths the int8 route does not take (4, 16,
+    32 and 64 bits; 64-bit codes are f32 on the card), on n x 384 seeded
+    synthetic codes: K1 (csrc/segmin.cu, seg 32) at Q = 1024 and 64, K4
+    (csrc/surface.cu, f32) at Q = 16 and 128, cosine.  Each is first held
+    against its plain version in f64 on the first 65,536 rows, then timed
+    beside the plain version, fp32 torch.matmul with TF32 off (the exact
+    library yardstick) and bf16 torch.matmul (inexact) of the queries with
+    the decoded codes, and its bound as the kernel table defines it: the
+    operations over the bf16 tensor rate or the bytes at that width.
+    Beside it, the operations over the fp32 rate these kernels compute at
+    (fp32_fma_bound_ms), and for the integer codes (4 and 16 bits) the
+    int8 route's floor."""
+    from syzgydb_tpu_torch.ops import distance as dist_ops
+    from syzgydb_tpu_torch.ops import quantize as qz
+    from syzgydb_tpu_torch.ops import scan
+
+    d, out = DIMS, {}
+    gen = torch.Generator(device=dev)
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for bits in (4, 16, 32, 64):
+            gen.manual_seed(bits)
+            w = qz.device_width(bits, d)
+            if bits == 4:
+                codes = torch.randint(0, 256, (n, w), generator=gen,
+                                      device=dev, dtype=torch.uint8)
+            elif bits == 16:
+                codes = torch.randint(-32768, 32768, (n, w), generator=gen,
+                                      device=dev, dtype=torch.int16)
+            else:
+                codes = torch.rand((n, w), generator=gen, device=dev) * 2 - 1
+            vals = dist_ops.decode_codes(codes, bits, d)
+            if bits in (4, 16):
+                scale, offset = qz.affine_constants(bits)
+                vals = vals.mul_(scale).add_(offset)
+            norms = vals.square().sum(1)
+            valid = torch.rand(n, generator=gen, device=dev) > 0.01
+            # held against the plain version on the first 65,536 rows
+            m = 1 << 16
+            sub = (codes[:m], norms[:m], valid[:m])
+            qq = tq[:64].contiguous()
+            qn2 = qq.square().sum(-1)
+            segmin_error(scan.segmin_fp32(qq, *sub, bits=bits,
+                                          metric="cosine", seg=32),
+                         scan.segment_min_scan_plain(
+                             qq, *sub, bits=bits, metric="cosine",
+                             dtype=torch.float64),
+                         qn2, sub[1], sub[2], "cosine", d,
+                         f"fp32 K1 {bits}-bit")
+            surface_error(scan.surface_fp32(qq[:16], *sub, bits=bits,
+                                            metric="cosine", exact=True),
+                          scan.score_surface_plain(
+                              qq[:16], *sub, bits=bits, metric="cosine",
+                              dtype=torch.float64),
+                          qn2[:16], sub[1], sub[2], "cosine", d,
+                          f"fp32 K4 {bits}-bit", False)
+            vb = vals.to(torch.bfloat16)
+            code_bytes = n * w * codes.element_size()
+            for kind, qs in (("segmin", (1024, 64)), ("surface", (128, 16))):
+                for q in qs:
+                    qq = tq[:q].contiguous()
+                    qb = qq.to(torch.bfloat16)
+                    if kind == "segmin":
+                        def kern():
+                            return scan.segmin_fp32(
+                                qq, codes, norms, valid, bits=bits,
+                                metric="cosine", seg=32)
+
+                        def plain():
+                            return scan.segment_min_scan_plain(
+                                qq, codes, norms, valid, bits=bits,
+                                metric="cosine")
+                        out_bytes = 4 * q * (n // 32)
+                    else:
+                        def kern():
+                            return scan.surface_fp32(
+                                qq, codes, norms, valid, bits=bits,
+                                metric="cosine", exact=True)
+
+                        def plain():
+                            return scan.score_surface_plain(
+                                qq, codes, norms, valid, bits=bits,
+                                metric="cosine", exact=True)
+                        out_bytes = 4 * q * n
+                    ops = 2.0 * q * n * d
+                    nbytes = code_bytes + 5 * n + 4 * q * d + out_bytes
+                    row = out[f"{kind}_{bits}bit_q{q}"] = {
+                        "ms": cuda_ms(kern, reps=3),
+                        "plain_ms": cuda_ms(plain, reps=1),
+                        "library_fp32_ms": cuda_ms(lambda: qq @ vals.T,
+                                                   reps=3),
+                        "library_bf16_inexact_ms": cuda_ms(
+                            lambda: qb @ vb.T, reps=3),
+                        **bound(ops, nbytes),
+                        "fp32_fma_bound_ms": bound(ops, nbytes,
+                                                   FP32_FLOPS)["bound_ms"]}
+                    if bits in (4, 16):
+                        # integer codes: the int8 route's 3 query slices
+                        # against one int8 slice of a 4-bit code, or two of
+                        # a 16-bit one
+                        row["int8_floor_ms"] = scan.I8_SLICES * (
+                            bits // 8 or 1) * ops / INT8_OPS * 1e3
+            del codes, vals, vb, norms, valid
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    log("fp32 kernels at the other widths (ms; bound, at the fp32 FMA rate): "
+        + ", ".join(f"{k} {v['ms']:.3f} ({v['bound_ms']:.3f}, "
+                    f"{v['fp32_fma_bound_ms']:.3f}; fp32 mm "
+                    f"{v['library_fp32_ms']:.3f})" for k, v in out.items()))
+    return out
+
 
 def bound(ops: float, nbytes: float, rate: float = BF16_FLOPS) -> dict:
     """The least time the card could take: the larger of the operations
@@ -1209,8 +1828,10 @@ def main() -> int:
     log(f"kernels built in {report['build_s']:.1f} s")
 
     errs = check_kernels(dev)
-    coll, tmp, state, tq, launches = main_path(dev, report)
+    coll, tmp, state, tq, launches, flow_rows = main_path(dev, report)
+    serving(coll, tmp, tq.cpu().numpy(), flow_rows, dev, report)
     times = kernel_times(coll, state, tq, dev)
+    times["fp32_widths"] = fp32_width_times(tq, dev)
     report["kernel_times"] = times
     coll.close()
     shutil.rmtree(tmp, ignore_errors=True)

@@ -46,6 +46,7 @@ ported yet and raise NotImplementedError.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import json
 import os
 import time
@@ -172,6 +173,16 @@ class CollectionStats:
     storage_size: int
     average_distance: float
 
+    def to_dict(self) -> dict:
+        return {
+            "document_count": self.document_count,
+            "dimension_count": self.dimension_count,
+            "quantization": self.quantization,
+            "distance_method": self.distance_method,
+            "storage_size": self.storage_size,
+            "average_distance": self.average_distance,
+        }
+
 
 def validate_options(options: CollectionOptions) -> None:
     """Reject invalid options BEFORE any file is created or written (stored
@@ -203,11 +214,19 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+_collection_tokens = itertools.count(1)
+
+
 class Collection:
     def __init__(self, options: CollectionOptions,
                  rng: Optional[MyRandom] = None, device=None):
         from .storage import SpanLog
 
+        # process-unique identity for batch grouping: id(coll) can be reused
+        # by a new collection once this one is collected, which would let a
+        # stale batch key alias across collections (server/batcher.py keys
+        # on this instead)
+        self.batch_token = next(_collection_tokens)
         self.device = resolve_device(device)
         if options.quantization == 0:
             options.quantization = 64
@@ -1276,6 +1295,45 @@ class Collection:
         return SearchResults(results, self._pct(considered, n_records))
 
     # -- stats & misc ------------------------------------------------------
+
+    def metadata_json_ok(self, result: SearchResult) -> bool:
+        """Memoized JSON-validity check of a result's metadata bytes: the
+        REST layer splices valid bytes verbatim into the response instead of
+        parsing and re-serializing each result.
+
+        The memo is row-indexed; metadata writes reset the row's bit
+        (ColumnStore), and the bytes-identity check below also guards a
+        rewrite landing between this validation and the memo store, so
+        bytes that were not validated are never memoized as valid."""
+        md = result.metadata
+        if not md:
+            return False
+        cols = self.columns
+        if not cols.metadata_resident:
+            # out-of-core metadata: every read returns fresh bytes from the
+            # span log, so the identity guard cannot hold — validate per
+            # result, never memoize
+            try:
+                json.loads(md)
+                return True
+            except Exception:
+                return False
+        row = cols._row_of.get(result.id)  # GIL-atomic dict read
+        if row is not None and row < len(cols.meta_ok) and \
+                cols.meta_ok[row] and cols.metadata[row] is md:
+            return True
+        try:
+            json.loads(md)
+        except Exception:
+            return False
+        if row is not None and row < len(cols.meta_ok) and \
+                cols.metadata[row] is md:
+            cols.meta_ok[row] = True
+            if cols.metadata[row] is not md:
+                # a rewrite raced between the identity check and the memo
+                # store: never leave True standing for unvalidated bytes
+                cols.meta_ok[row] = False
+        return True
 
     def get_document_count(self) -> int:
         return len(self.columns)

@@ -1,1 +1,2 @@
-"""Measurement tools of the PyTorch/CUDA port (run on a CUDA card)."""
+"""The port's command line (cli.py) and its measurement tools (run on a
+CUDA card)."""

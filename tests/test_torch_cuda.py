@@ -16,6 +16,9 @@ fragment layout would break; K4's bf16 surface within its bound plus half
 a bf16 ulp of the value; K2's (f32 and bf16) and K3's integer counts must
 match exactly."""
 
+import importlib.util
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -512,3 +515,115 @@ def test_cuda_radius_and_filters_match_cpu(cuda, tmp_path, monkeypatch):
     pairs = [(set(a), set(b)) for a, b in zip(medium["cpu"], medium["cuda"])]
     assert sum(len(a & b) for a, b in pairs) >= \
         0.98 * sum(len(a | b) for a, b in pairs)
+
+
+def _chip_smoke():
+    """chip_smoke.py, loaded by path: the serving phase's REST flow steps
+    (rest_flow_steps) are this test's too."""
+    path = os.path.join(os.path.dirname(__file__), os.pardir, "chip_smoke.py")
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _medium_bounds(coll, qvecs, vecs64):
+    """What any medium answer of `coll` may hold, per query: medium reranks
+    the `budget` rows of least Hamming count, so every candidate set holds
+    the rows below the budget's count (`sure`) and some of those at it
+    (`tied`); the CPU and CUDA torch.topk pick different tied rows.  Counts
+    by the plain K2 on the host; `vecs64[i]` is record i's vector.  -> per
+    query (sure, sure + tied, fp64 top-10 of sure, fp64 top-10 of sure +
+    tied), as sets of ids."""
+    state = coll._device_state()
+    budget = min(max(coll.options.search_budget, 40), coll.columns.capacity)
+    valid = state["valid"].cpu()
+    qcode = torch.from_numpy(coll.index.encode_np(qvecs).view(np.int32))
+    ham = hamming_scan.hamming_scores_plain(qcode, state["hashes"].cpu(),
+                                            valid)
+    cut = torch.kthvalue(ham, budget, dim=1).values[:, None]
+    ids = np.where(valid.numpy(), coll.columns.ids[:len(valid)], 0)
+    v = vecs64[ids] / np.linalg.norm(vecs64[ids], axis=1, keepdims=True)
+    q = qvecs.astype(np.float64)
+    dist = -(q / np.linalg.norm(q, axis=1, keepdims=True)) @ v.T
+
+    def top10(d, keep):
+        return set(ids[np.argsort(np.where(keep, d, np.inf),
+                                  kind="stable")[:10]].tolist())
+
+    return [(set(ids[s].tolist()), set(ids[m].tolist()), top10(d, s),
+             top10(d, m)) for d, s, m in
+            zip(dist, (ham < cut).numpy(), (ham <= cut).numpy())]
+
+
+@pytest.mark.parametrize("rows", ["clustered", "gaussian"])
+def test_cuda_rest_flow_matches_cpu(cuda, tmp_path, monkeypatch, rows):
+    """The default-quantization REST flow of chip_smoke.py (create,
+    inserts, searches, metadata update, record delete, ids and stats,
+    restart, searches, collection delete) at 65,536 x 64 (4.2 M elements,
+    past HOST_SCAN_MAX_ELEMS: the device branches) on the CUDA server and
+    on the CPU one, each search step 24 high and 8 default-precision
+    (medium) searches one at a time: equal JSON shapes and equal high ids.
+    Medium ids may differ only through the rows tied at the sketch budget's
+    Hamming count, which the CPU and CUDA torch.topk break differently:
+    each device's answer holds the fp64 top-10 of all candidates wherever
+    that lies below the tie, lies in the top-10 of the rows below it
+    otherwise, and never leaves the tied rows (_medium_bounds).  On 256
+    clusters each query's top-10 lies in its own cluster, well inside the
+    2048-row budget, and the two devices' medium id sets also overlap by
+    98%; on Gaussian rows the ties reach the top-10 (PERF.md).  Both
+    servers run with random_seed 7, so they draw the same sketch planes."""
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(21)
+    if rows == "clustered":
+        centers = rng.standard_normal((256, 64)).astype(np.float32)
+        vecs = centers[rng.integers(0, 256, 65536)] + \
+            0.25 * rng.standard_normal((65536, 64)).astype(np.float32)
+        queries = vecs[rng.integers(0, 65536, 24)] + \
+            0.1 * rng.standard_normal((24, 64)).astype(np.float32)
+    else:
+        vecs = rng.standard_normal((65536, 64)).astype(np.float32)
+        queries = rng.standard_normal((24, 64)).astype(np.float32)
+    path = "/api/v1/collections/flow/search"
+    vecs64 = vecs.astype(np.float64)
+    before = (scan.launches, scan.i8_launches)
+    # one random_seed for both servers: the same index seed and the same
+    # calibration sample, so both placements draw the same sketch planes
+    from syzgydb_tpu_torch.utils.rng import my_random
+    monkeypatch.setattr(my_random, "_rng", my_random._rng)
+    monkeypatch.setattr(my_random, "_seed", my_random._seed)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        high, medium = [], []
+
+        def search(tag, srv, port):
+            res = []
+            for q in queries:
+                res.append(smoke.http_call(port, "POST", path, {
+                    "vector": q.tolist(), "k": 10, "precision": "high"}))
+                high.append([r["id"] for r in res[-1]["results"]])
+            for q, (sure, tied, top_sure, top_all) in zip(
+                    queries[:8], _medium_bounds(srv.collections["flow"],
+                                                queries[:8], vecs64)):
+                res.append(smoke.http_call(port, "POST", path, {
+                    "vector": q.tolist(), "k": 10}))
+                got = {r["id"] for r in res[-1]["results"]}
+                assert got <= tied and top_all & sure <= got and \
+                    got & sure <= top_sure, (dev, tag, sorted(got))
+                medium.append(got)
+            return res
+
+        (tmp_path / dev).mkdir()
+        my_random.seed(7)
+        out[dev] = (smoke.rest_flow_steps(str(tmp_path / dev), vecs, dev,
+                                          search, 8192), high, medium)
+    # the CUDA server's high searches ran the fp32 K1 (segmin.cu) alone
+    assert scan.launches > before[0] and scan.i8_launches == before[1]
+    assert out["cpu"][0] == out["cuda"][0]
+    assert out["cpu"][1] == out["cuda"][1]
+    pairs = list(zip(out["cpu"][2], out["cuda"][2]))
+    common = sum(len(a & b) for a, b in pairs)
+    union = sum(len(a | b) for a, b in pairs)
+    print(f"medium id sets, {rows} rows: {common} common of {union}")
+    if rows == "clustered":
+        assert common >= 0.98 * union, (common, union)
