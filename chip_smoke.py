@@ -63,6 +63,15 @@ JAX or of the JAX package.  Phases, each of which fails the run:
      tests/test_torch_cuda.py runs too).  Any non-2xx status or client
      exception fails
      the run; every kernel of the serving path must launch in it.
+  3c. the server's default width: a 262,144 x 384 cosine collection at
+     quantization 64 (f32 codes: the fp32 K1 and K4 of csrc/segmin.cu and
+     csrc/surface.cu) from the corpus's first rows, high batches of 16 and
+     64 (the batcher's group sizes) and a radius high batch of 16 (half of
+     it at ~2000 rows, escalating into K4): recall@10 1.0 and radius id
+     sets equal to the fp64 oracle's, every flag 1, fp32 K1 and K4 launched
+     and no int8 route, and both held against their plain version in f64
+     on the collection's state at Q = 16, 17 and 64, both metrics; wall ms
+     per batch beside the kernels' ms.
   4. kernels at the main path's shapes: all six on the ingested state held
      against their plain versions as in phase 2, then timed beside the
      plain versions, a library call and their bounds on the H100 (K1 at
@@ -73,13 +82,20 @@ JAX or of the JAX package.  Phases, each of which fails the run:
      bits);
      end-to-end ms per batch and QPS; the first filter mask's build time;
      the radius group's device transient against core/capacity.py's
-     estimate; and the fp32 kernels at the other widths (K1 at Q = 1024
-     and 64, K4 at Q = 128 and 16, bits 4, 16, 32 and 64, 1,048,576 x 384
-     seeded synthetic codes), each held against its plain version on
-     65,536 rows, beside fp32 (TF32 off) and bf16 torch.matmul.
+     estimate; and the fp32 kernels at the other widths (bits 4, 16, 32
+     and 64, 1,048,576 x 384 seeded synthetic codes): every query tile
+     (16, 32, 64, 128) held against its plain version on 262,144 rows at
+     Q in {1, 16, 17, 64, 65, 128, 129}, both metrics, two launches
+     bit-identical; then K1 at Q = 1024, 64 and 16 and K4 at Q = 128 and
+     16 timed beside fp32 (TF32 off) and bf16 torch.matmul, and K1 on
+     64-bit codes at Q = 16, 32, 64 on every tile that holds them.
 
-The report line (serving numbers under "serving") comes before the
-{"kernels": [...]} line, and the last line is {"ok": true, "device": {...}}.
+The report line (serving numbers under "serving", the 64-bit phase under
+"e2e_64bit") comes before the {"kernels": [...]} line (K1-K6, and K1 and
+K4 on f32 codes with the 64-bit phase's launches and errors; every row's
+bound_ms is the larger of the operations over the bf16 tensor rate and
+the bytes over the memory rate), and the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -610,7 +626,7 @@ def main_path(dev, report: dict):
         coll.add_documents(ids, db[a:a + step],
                            [b'{"i":%d}' % i for i in ids])
     report["ingest_s"] = time.perf_counter() - t0
-    flow_rows = db[:FLOW_ROWS].copy()  # the serving phase's REST flow
+    rows64 = db[:ROWS64].copy()  # the 64-bit phase's and the REST flow's
     del db
     log(f"ingested {N_ROWS} rows in {report['ingest_s']:.1f} s "
         f"(capacity {coll.columns.capacity})")
@@ -879,7 +895,7 @@ def main_path(dev, report: dict):
             rq["high"], radius_plan["high"][0], "high"))),
         ("radius_exact_batch8", lambda: coll.radius_many(rargs(
             rq["exact"], radius_plan["exact"][0], "exact")))])
-    return coll, tmp, state, tq, launches, flow_rows
+    return coll, tmp, state, tq, launches, rows64
 
 
 def check_radius_and_filters(coll, oracle, queries, rad, radius_plan, flt,
@@ -1447,70 +1463,281 @@ def rest_flow(rows: np.ndarray, queries: np.ndarray, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the REST server's default width (quantization 64) end to end
+# ---------------------------------------------------------------------------
+
+ROWS64 = 1 << 18
+
+
+def e2e_64bit(rows: np.ndarray, queries: np.ndarray, dev,
+              report: dict) -> dict:
+    """A 262,144 x 384 cosine collection at quantization 64 (f32 codes on
+    the card: K1 and K4 on csrc/segmin.cu and csrc/surface.cu) from the
+    corpus's first rows, queried at the batcher's group sizes through
+    search_many (high, batches of 16 and 64) and radius_many (high, a batch
+    of 16: 8 radii at ~2000 rows, whose group escalates past the fused
+    bound into K4, and 8 at ~50).  Gates: recall@10 1.0 against the fp64
+    oracle, radius id sets equal to the oracle's, every completeness flag
+    1 up the escalation ladder with the proven rows high's, fp32 K1 and K4
+    launched in the run (counters reset before it), and both kernels
+    within their bound of the f64 plain version on the collection's state
+    at Q = 16, 17 and 64, both metrics.  Reports the wall ms
+    per batch beside the fp32 kernels' ms on the collection's state.  The
+    collection is closed and its file removed."""
+    import syzgydb_tpu_torch as tdb
+    from syzgydb_tpu_torch.ops import scan
+
+    tmp = tempfile.mkdtemp(prefix="syzgy_e2e64_")
+    out = {"rows": len(rows)}
+    try:
+        coll = tdb.Collection(tdb.CollectionOptions(
+            name=os.path.join(tmp, "e2e64.dat"), distance_method=tdb.COSINE,
+            dimension_count=DIMS, quantization=64, index_seed=4242))
+        t0 = time.perf_counter()
+        step = 1 << 16
+        for a in range(0, len(rows), step):
+            ids = list(range(a, min(a + step, len(rows))))
+            coll.add_documents(ids, rows[a:a + step],
+                               [b'{"i":%d}' % i for i in ids])
+        out["ingest_s"] = time.perf_counter() - t0
+        v = torch.from_numpy(rows).to(dev, torch.float64)
+        oracle = (v / v.norm(dim=1, keepdim=True),
+                  torch.ones(len(rows), dtype=torch.bool, device=dev),
+                  torch.arange(len(rows), device=dev))
+        truth = oracle_top10(oracle, queries[:64])
+        rq = queries[64:80]
+        wide, narrow = oracle_radius(oracle, rq[:8], 2000), \
+            oracle_radius(oracle, rq[8:], 50)
+        radii, sets = wide[0] + narrow[0], wide[1] + narrow[1]
+        del v, oracle
+
+        def knn(qs):
+            return coll.search_many([tdb.SearchArgs(
+                vector=q, k=K, precision="high") for q in qs])
+
+        def radius():
+            return coll.radius_many([tdb.SearchArgs(
+                vector=q, radius=r, precision="high")
+                for q, r in zip(rq, radii)])
+
+        reset_counters()
+        c0 = counters()
+        res16, res64, rad = knn(queries[:16]), knn(queries[:64]), radius()
+        torch.cuda.synchronize()
+        c1 = counters()
+        out["launches"] = {
+            "segmin_fp32": (c1["segmin"] - c1["segmin_i8"]) -
+            (c0["segmin"] - c0["segmin_i8"]),
+            "surface_fp32": (c1["surface"] - c1["surface_i8"]) -
+            (c0["surface"] - c0["surface_i8"]),
+            "int8": sum(c1[k] - c0[k] for k in
+                        ("segmin_i8", "surface_i8", "segmin_free_seg_i8"))}
+        out["recall_at_10"] = {"high_batch16": recall(res16, truth[:16]),
+                               "high_batch64": recall(res64, truth)}
+        got = [{r.id for r in x.results} for x in rad]
+        out["radius_sizes"] = [min(map(len, sets)), max(map(len, sets))]
+        out["radius_set_recall"] = float(np.mean(
+            [len(g & t) / len(t) for g, t in zip(got, sets)]))
+        if min(out["recall_at_10"].values()) < 1.0:
+            raise AssertionError(f"64-bit phase: recall below 1.0 "
+                                 f"({out['recall_at_10']})")
+        if got != sets:
+            raise AssertionError(f"64-bit phase: radius id sets differ from "
+                                 f"the fp64 oracle's "
+                                 f"({out['radius_set_recall']})")
+        if min(out["launches"]["segmin_fp32"],
+               out["launches"]["surface_fp32"]) == 0 or \
+                out["launches"]["int8"]:
+            raise AssertionError(f"64-bit phase: the fp32 K1 and K4 did not "
+                                 f"both run alone ({out['launches']})")
+
+        # the completeness flags of the batch of 64, up the escalation
+        # ladder from the collection's margin hint until every flag is 1;
+        # the proven rows must be the rows high returned
+        state = coll._device_state()
+        tq = torch.from_numpy(queries[:64]).to(dev)
+        margin, first = coll._seg_margin_hint, None
+        while True:
+            _, r, ok = scan.fused_scan_topk(
+                tq, state["codes"], state["norms"], state["valid"], bits=64,
+                metric="cosine", k=K, tie_margin=margin, with_ties=True)
+            frac = float(ok.float().mean())
+            first = frac if first is None else first
+            if frac == 1.0:
+                break
+            margin = coll._escalate_margin(margin)
+        ids = coll.columns.ids
+        if [[int(ids[x]) for x in row] for row in r.cpu().numpy()] != \
+                [[x.id for x in res.results] for res in res64]:
+            raise AssertionError("64-bit phase: proven rows differ from "
+                                 "high's results")
+        out["flags"] = {"first_rung_ok_frac": first, "all_ok": True,
+                        "proven_margin": margin or scan.default_tie_margin()}
+
+        # the fp32 kernels against their plain version in f64 on the
+        # collection's own state at the batcher's group sizes (tiles 16, 32
+        # and 64): here every persistent block walks several (query tile,
+        # row tile) units, as on the main path
+        codes, norms, valid = state["codes"], state["norms"], state["valid"]
+        err = out["max_abs_err"] = {"segmin_fp32": 0.0, "surface_fp32": 0.0}
+        for q in (16, 17, 64):
+            qq = tq[:q].contiguous()
+            qn2 = qq.square().sum(-1)
+            for metric in ("cosine", "euclidean"):
+                what = f"64-bit phase {metric} Q={q}"
+                e, _ = segmin_error(
+                    scan.segmin_fp32(qq, codes, norms, valid, bits=64,
+                                     metric=metric, seg=32),
+                    scan.segment_min_scan_plain(
+                        qq, codes, norms, valid, bits=64, metric=metric,
+                        dtype=torch.float64),
+                    qn2, norms, valid, metric, DIMS, f"K1 {what}")
+                err["segmin_fp32"] = max(err["segmin_fp32"], e)
+                e, _ = surface_error(
+                    scan.surface_fp32(qq, codes, norms, valid, bits=64,
+                                      metric=metric, exact=True),
+                    scan.score_surface_plain(
+                        qq, codes, norms, valid, bits=64, metric=metric,
+                        dtype=torch.float64),
+                    qn2, norms, valid, metric, DIMS, f"K4 {what}", False)
+                err["surface_fp32"] = max(err["surface_fp32"], e)
+
+        # wall ms per batch (warm) beside the fp32 kernels' device ms on the
+        # collection's state at the same query counts
+        out["wall_ms"] = {
+            "high_batch16": statistics.median(wall_ms(
+                lambda: knn(queries[:16]), 7)),
+            "high_batch64": statistics.median(wall_ms(
+                lambda: knn(queries[:64]), 7)),
+            "radius_high_batch16": statistics.median(wall_ms(radius, 5))}
+        out["kernel_ms"] = {
+            f"segmin_fp32_q{q}": cuda_ms(lambda: scan.segmin_fp32(
+                tq[:q], codes, norms, valid, bits=64, metric="cosine",
+                seg=32), reps=10) for q in (16, 64)}
+        out["kernel_ms"]["surface_fp32_q16"] = cuda_ms(
+            lambda: scan.surface_fp32(tq[:16], codes, norms, valid, bits=64,
+                                      metric="cosine", exact=True), reps=10)
+        coll.close()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"64-bit phase ({out['rows']} rows, quantization 64): {out}")
+    report["e2e_64bit"] = out
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel times at the main path's shapes
 # ---------------------------------------------------------------------------
+
+FP32_CHECK_QS = (1, 16, 17, 64, 65, 128, 129)
+
+
+def fp32_synthetic(bits: int, n: int, dev):
+    """n x 384 seeded synthetic codes at `bits` (64-bit: f32 codes), their
+    decoded f32 values (affine-mapped for 4/16 bits), norms and 1% invalid
+    rows."""
+    from syzgydb_tpu_torch.ops import distance as dist_ops
+    from syzgydb_tpu_torch.ops import quantize as qz
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(bits)
+    w = qz.device_width(bits, DIMS)
+    if bits == 4:
+        codes = torch.randint(0, 256, (n, w), generator=gen, device=dev,
+                              dtype=torch.uint8)
+    elif bits == 16:
+        codes = torch.randint(-32768, 32768, (n, w), generator=gen,
+                              device=dev, dtype=torch.int16)
+    else:
+        codes = torch.rand((n, w), generator=gen, device=dev) * 2 - 1
+    vals = dist_ops.decode_codes(codes, bits, DIMS)
+    if bits in (4, 16):
+        scale, offset = qz.affine_constants(bits)
+        vals = vals.mul_(scale).add_(offset)
+    norms = vals.square().sum(1)
+    valid = torch.rand(n, generator=gen, device=dev) > 0.01
+    return codes, vals, norms, valid
+
+
+def fp32_variant_checks(tq, codes, norms, valid, bits: int) -> dict:
+    """Every query tile of the fp32 kernels on the first 262,144 rows (so
+    that every persistent block walks several units at every tile): K1
+    (seg 32) and K4 (f32 and bf16) at Q in FP32_CHECK_QS (tiles 16, 16,
+    32, 64, 128, 128, 128 x 2), both metrics, held against the plain
+    version in f64 (segmin_error / surface_error), and each launch repeated
+    for a bit-identical output.  -> max |err| of K1 and of K4's f32
+    surface, and the configurations checked."""
+    from syzgydb_tpu_torch.ops import scan
+
+    m = 1 << 18
+    sub = (codes[:m], norms[:m], valid[:m])
+    out = {"segmin_err": 0.0, "surface_err": 0.0, "runs": 0}
+    for q in FP32_CHECK_QS:
+        qq = tq[:q].contiguous()
+        qn2 = qq.square().sum(-1)
+        for metric in ("euclidean", "cosine"):
+            what = f"fp32 {bits}-bit {metric} Q={q} (tile " \
+                   f"{scan.fp32_query_tile(q)})"
+            got = scan.segmin_fp32(qq, *sub, bits=bits, metric=metric,
+                                   seg=32)
+            if not torch.equal(got, scan.segmin_fp32(
+                    qq, *sub, bits=bits, metric=metric, seg=32)):
+                raise AssertionError(f"K1 not bit-identical across two "
+                                     f"launches: {what}")
+            err, _ = segmin_error(got, scan.segment_min_scan_plain(
+                qq, *sub, bits=bits, metric=metric, dtype=torch.float64),
+                qn2, sub[1], sub[2], metric, DIMS, f"K1 {what}")
+            out["segmin_err"] = max(out["segmin_err"], err)
+            want = scan.score_surface_plain(qq, *sub, bits=bits,
+                                            metric=metric,
+                                            dtype=torch.float64)
+            for exact in (True, False):
+                got = scan.surface_fp32(qq, *sub, bits=bits, metric=metric,
+                                        exact=exact)
+                if not torch.equal(got, scan.surface_fp32(
+                        qq, *sub, bits=bits, metric=metric, exact=exact)):
+                    raise AssertionError(f"K4 not bit-identical across two "
+                                         f"launches: {what}")
+                err, _ = surface_error(got, want, qn2, sub[1], sub[2],
+                                       metric, DIMS,
+                                       f"K4 {what} exact={exact}", not exact)
+                if exact:
+                    out["surface_err"] = max(out["surface_err"], err)
+            out["runs"] += 3
+            del got, want
+    return out
+
 
 def fp32_width_times(tq, dev, n: int = 1 << 20) -> dict:
     """The fp32 kernels at the widths the int8 route does not take (4, 16,
     32 and 64 bits; 64-bit codes are f32 on the card), on n x 384 seeded
-    synthetic codes: K1 (csrc/segmin.cu, seg 32) at Q = 1024 and 64, K4
-    (csrc/surface.cu, f32) at Q = 16 and 128, cosine.  Each is first held
-    against its plain version in f64 on the first 65,536 rows, then timed
-    beside the plain version, fp32 torch.matmul with TF32 off (the exact
-    library yardstick) and bf16 torch.matmul (inexact) of the queries with
-    the decoded codes, and its bound as the kernel table defines it: the
-    operations over the bf16 tensor rate or the bytes at that width.
-    Beside it, the operations over the fp32 rate these kernels compute at
-    (fp32_fma_bound_ms), and for the integer codes (4 and 16 bits) the
-    int8 route's floor."""
-    from syzgydb_tpu_torch.ops import distance as dist_ops
-    from syzgydb_tpu_torch.ops import quantize as qz
+    synthetic codes: first every query tile held against the plain version
+    (fp32_variant_checks), then K1 (csrc/segmin.cu, seg 32) at Q = 1024, 64
+    and 16 and K4 (csrc/surface.cu, f32) at Q = 128 and 16, cosine, each
+    timed beside the plain version, fp32 torch.matmul with TF32 off (the
+    exact library yardstick) and bf16 torch.matmul (inexact) of the queries
+    with the decoded codes, and its bound as the kernel table defines it:
+    the operations over the bf16 tensor rate or the bytes at that width.
+    Beside it, the bound at the fp32 FMA rate these kernels compute at
+    (fp32_fma_bound_ms: the larger of the bytes and the operations over 67
+    TFLOP/s), and for the integer codes (4 and 16 bits) the int8 route's
+    floor.  Last, K1 on the 64-bit codes at Q = 16, 32 and 64 on every query
+    tile that holds them (tile_sweep): what sets fp32_query_tile's cut
+    points."""
     from syzgydb_tpu_torch.ops import scan
 
-    d, out = DIMS, {}
-    gen = torch.Generator(device=dev)
+    d, out = DIMS, {"checks": {}}
     tf32 = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
         for bits in (4, 16, 32, 64):
-            gen.manual_seed(bits)
-            w = qz.device_width(bits, d)
-            if bits == 4:
-                codes = torch.randint(0, 256, (n, w), generator=gen,
-                                      device=dev, dtype=torch.uint8)
-            elif bits == 16:
-                codes = torch.randint(-32768, 32768, (n, w), generator=gen,
-                                      device=dev, dtype=torch.int16)
-            else:
-                codes = torch.rand((n, w), generator=gen, device=dev) * 2 - 1
-            vals = dist_ops.decode_codes(codes, bits, d)
-            if bits in (4, 16):
-                scale, offset = qz.affine_constants(bits)
-                vals = vals.mul_(scale).add_(offset)
-            norms = vals.square().sum(1)
-            valid = torch.rand(n, generator=gen, device=dev) > 0.01
-            # held against the plain version on the first 65,536 rows
-            m = 1 << 16
-            sub = (codes[:m], norms[:m], valid[:m])
-            qq = tq[:64].contiguous()
-            qn2 = qq.square().sum(-1)
-            segmin_error(scan.segmin_fp32(qq, *sub, bits=bits,
-                                          metric="cosine", seg=32),
-                         scan.segment_min_scan_plain(
-                             qq, *sub, bits=bits, metric="cosine",
-                             dtype=torch.float64),
-                         qn2, sub[1], sub[2], "cosine", d,
-                         f"fp32 K1 {bits}-bit")
-            surface_error(scan.surface_fp32(qq[:16], *sub, bits=bits,
-                                            metric="cosine", exact=True),
-                          scan.score_surface_plain(
-                              qq[:16], *sub, bits=bits, metric="cosine",
-                              dtype=torch.float64),
-                          qn2[:16], sub[1], sub[2], "cosine", d,
-                          f"fp32 K4 {bits}-bit", False)
+            codes, vals, norms, valid = fp32_synthetic(bits, n, dev)
+            out["checks"][f"{bits}bit"] = fp32_variant_checks(
+                tq, codes, norms, valid, bits)
             vb = vals.to(torch.bfloat16)
-            code_bytes = n * w * codes.element_size()
-            for kind, qs in (("segmin", (1024, 64)), ("surface", (128, 16))):
+            code_bytes = codes.numel() * codes.element_size()
+            for kind, qs in (("segmin", (1024, 64, 16)),
+                             ("surface", (128, 16))):
                 for q in qs:
                     qq = tq[:q].contiguous()
                     qb = qq.to(torch.bfloat16)
@@ -1539,28 +1766,46 @@ def fp32_width_times(tq, dev, n: int = 1 << 20) -> dict:
                     ops = 2.0 * q * n * d
                     nbytes = code_bytes + 5 * n + 4 * q * d + out_bytes
                     row = out[f"{kind}_{bits}bit_q{q}"] = {
-                        "ms": cuda_ms(kern, reps=3),
+                        "tile": scan.fp32_query_tile(q),
+                        "ms": cuda_ms(kern, reps=5),
                         "plain_ms": cuda_ms(plain, reps=1),
                         "library_fp32_ms": cuda_ms(lambda: qq @ vals.T,
-                                                   reps=3),
+                                                   reps=5),
                         "library_bf16_inexact_ms": cuda_ms(
                             lambda: qb @ vb.T, reps=3),
                         **bound(ops, nbytes),
                         "fp32_fma_bound_ms": bound(ops, nbytes,
-                                                   FP32_FLOPS)["bound_ms"]}
+                                                   FP32_FLOPS)["bound_ms"],
+                        "fp32_fma_bound_by": bound(ops, nbytes,
+                                                   FP32_FLOPS)["bound_by"]}
                     if bits in (4, 16):
                         # integer codes: the int8 route's 3 query slices
                         # against one int8 slice of a 4-bit code, or two of
                         # a 16-bit one
                         row["int8_floor_ms"] = scan.I8_SLICES * (
                             bits // 8 or 1) * ops / INT8_OPS * 1e3
+            if bits == 64:
+                sweep = torch.empty((64, n // 32), device=dev)
+                out["tile_sweep"] = {
+                    f"q{q}_tile{t}": cuda_ms(
+                        lambda: scan._launch_fp32(
+                            "segmin", sweep[:q], 32, tq[:q], codes, norms,
+                            valid, bits=bits, metric="cosine", tile=t),
+                        reps=5)
+                    for q in (16, 32, 64) for t in scan.FP32_TILES if t >= q}
+                del sweep
             del codes, vals, vb, norms, valid
     finally:
         torch.backends.cuda.matmul.allow_tf32 = tf32
-    log("fp32 kernels at the other widths (ms; bound, at the fp32 FMA rate): "
-        + ", ".join(f"{k} {v['ms']:.3f} ({v['bound_ms']:.3f}, "
-                    f"{v['fp32_fma_bound_ms']:.3f}; fp32 mm "
-                    f"{v['library_fp32_ms']:.3f})" for k, v in out.items()))
+    log("fp32 kernels: every query tile within its bound of f64 and "
+        "bit-identical across launches: " + ", ".join(
+            f"{k} {v['runs']} (K1 {v['segmin_err']:.3g}, K4 "
+            f"{v['surface_err']:.3g})" for k, v in out["checks"].items()))
+    log("fp32 kernels at the other widths (ms; fp32 FMA bound; fp32 mm): "
+        + ", ".join(f"{k} {v['ms']:.4f} ({v['fp32_fma_bound_ms']:.3f}; "
+                    f"{v['library_fp32_ms']:.3f})" for k, v in out.items()
+                    if k not in ("checks", "tile_sweep")))
+    log(f"fp32 K1 64-bit tile sweep (ms): {out['tile_sweep']}")
     return out
 
 
@@ -1819,8 +2064,8 @@ def main() -> int:
               "cuda": torch.version.cuda}
 
     t0 = time.perf_counter()
-    for name, ptxas in cuda_build.build_all().items():
-        log(f"--- nvcc {name}.cu ---\n{ptxas}")
+    for lib, ptxas in cuda_build.build_all().items():
+        log(f"--- nvcc {lib} ---\n{ptxas}")
     # the JSON field projector (g++) too, so the first filter mask is
     # timed without its build; without g++ filters parse in Python
     report["jsonproj_native"] = native.get_jsonproj() is not None
@@ -1828,8 +2073,10 @@ def main() -> int:
     log(f"kernels built in {report['build_s']:.1f} s")
 
     errs = check_kernels(dev)
-    coll, tmp, state, tq, launches, flow_rows = main_path(dev, report)
-    serving(coll, tmp, tq.cpu().numpy(), flow_rows, dev, report)
+    coll, tmp, state, tq, launches, rows64 = main_path(dev, report)
+    serving(coll, tmp, tq.cpu().numpy(), rows64[:FLOW_ROWS], dev, report)
+    e64 = e2e_64bit(rows64, tq.cpu().numpy(), dev, report)
+    del rows64
     times = kernel_times(coll, state, tq, dev)
     times["fp32_widths"] = fp32_width_times(tq, dev)
     report["kernel_times"] = times
@@ -1841,6 +2088,9 @@ def main() -> int:
     seg, ham = times["segmin_q1024"], times["hamming_q8"]
     ham8, surf = times["hamming_u8_q64"], times["surface_q128"]
     free = times["segmin_seg64_q1024"]
+    fp32 = times["fp32_widths"]
+    seg32, surf32 = fp32["segmin_64bit_q64"], fp32["surface_64bit_q16"]
+    chk32 = fp32["checks"].values()
 
     def row(name, source, replaces, launched, err, t, library):
         return {"name": name, "route": "cuda",
@@ -1878,6 +2128,22 @@ def main() -> int:
         row("segmin_free_seg_natural", "segmin_i8.cu",
             "tools_dev/superseded_kernels.py:138",
             launches["segmin_free_seg"], free_err, free, free["library_ms"]),
+        # K1 and K4 on f32 codes (the REST server's default quantization,
+        # 64): launches and errors from the 64-bit phase (with every tile's
+        # check at every width), times at 1M x 384, the table's bound (the
+        # fp32 FMA rate's is fp32_fma_bound_ms in the report), yardstick
+        # fp32 torch.matmul
+        row("segmin_fp32", "segmin.cu", "syzgydb_tpu/ops/pallas_scan.py:416",
+            e64["launches"]["segmin_fp32"],
+            max([e64["max_abs_err"]["segmin_fp32"]] +
+                [c["segmin_err"] for c in chk32]), seg32,
+            seg32["library_fp32_ms"]),
+        row("surface_fp32", "surface.cu",
+            "syzgydb_tpu/ops/pallas_scan.py:272",
+            e64["launches"]["surface_fp32"],
+            max([e64["max_abs_err"]["surface_fp32"]] +
+                [c["surface_err"] for c in chk32]), surf32,
+            surf32["library_fp32_ms"]),
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,5 +1,7 @@
-// K1, K5, K6: fused code-matmul + surrogate epilogue + SEG-row segment
-// minimum.
+// K1, K5, K6 in fp32 FMA: fused code-matmul + surrogate epilogue + SEG-row
+// segment minimum, for the code widths the int8 route (segmin_i8.cu) does
+// not take: 4-, 16-bit and f32 (32- and 64-bit collections) codes, and
+// 8-bit codes when called directly.
 //
 // Replaces syzgydb_tpu/ops/pallas_scan.py::_segmin_ilv_kernel (K1, wrapper
 // segment_min_scan_ilv, 32-row segments) and the two archived TPU layouts
@@ -13,33 +15,24 @@
 //   cosine:    (1 - clip(dot * rsqrt(|q|^2 |v_r|^2), -1, 1)) / 2,
 //              1.0 where |q|^2 |v_r|^2 == 0
 // with dot = scale * (q . c_r) + offset * sum(q) for 4/8/16-bit codes and
-// the raw q . c_r for 32/64-bit (f32) codes; invalid rows are +inf.  Output
-// is (Q, N/SEG) f32 in ORIGINAL segment order, SEG in {16, 32, 64, 128}.
+// the raw q . c_r for f32 codes; invalid rows are +inf.  Output is
+// (Q, N/SEG) f32 in ORIGINAL segment order, SEG in {16, 32, 64, 128}.
 //
 // Layout: the TPU kernels needed a segment-interleaved or transposed copy
 // of the codes (or a rotate-accumulator) so that Mosaic could fold minima
-// over whole lane tiles; the three TPU kernels differ only in that layout.
-// Here the codes stay in their natural row-major (N, W) layout and one
-// kernel serves every segment length: the tile loop (scan_tile.cuh) leaves
-// thread tx holding rows tx + 16 j of a 128-row tile, so segment s of the
-// tile is rows tx + 16 j for j in [s*J, (s+1)*J), J = SEG/16.  Each thread
-// first folds its J rows of the segment, then a 4-step __shfl_xor_sync
-// reduction over the half-warp's 16 lanes finishes it (SEG = 128 folds all
-// 8 rows: one segment per tile).
+// over whole lane tiles.  Here the codes stay row-major (N, W) and one
+// kernel serves every segment length: in the tile loop (scan_tile.cuh) a
+// thread holds runs of 4 consecutive rows, 64 rows apart, and a warp's 16
+// row lanes cover 64 consecutive rows with each run, so each thread folds
+// its runs (SEG = 128: two runs), and a __shfl_xor_sync over SEG/4 (at
+// most 16) row lanes finishes the minimum.
 //
-// Arithmetic: fp32 FMA at every width (option (i) of the port's design).
-// 4/8/16-bit centered codes and f32 codes are exact in f32, queries are not
-// rounded, so the only error is f32 accumulation (~D * 2^-24 relative) —
-// inside surface_accum_eps.  The same arithmetic serves exact=True.
-//
-// Bound on the H100: 2*Q*N*D operations.  At Q=1024, N=1M, D=384 that is
-// ~0.8 TFLOP: compute-bound (0.8 ms at the 989 TFLOP/s bf16 tensor rate,
-// ~12 ms at the 67 TFLOP/s fp32 CUDA-core rate this kernel runs at).  At
-// Q <= 64 the codes read (N*D bytes at 8-bit) bounds it instead.  The
-// design answers the compute bound with a 64-FMA register tile per
-// thread fed by 2 broadcast 128-bit and 8 conflict-free 32-bit shared
-// loads per k step; tensor cores (bf16 mma/wgmma with the reference's
-// exact hi/lo and bf16x2 code splits), TMA and pipelining are later work.
+// The tile loop's query-tile variants (BQ = 16, 32, 64, 128, chosen from Q
+// by ops/scan.py::fp32_query_tile), its cp.async ring of raw code stages
+// and what bounds each shape on the H100 are described in scan_tile.cuh:
+// at Q = 16 on f32 codes the codes' read bounds it, at Q >= 64 and on 4-
+// and 16-bit codes the fp32 FMA rate.  The same arithmetic serves
+// exact=True.
 
 #include "scan_tile.cuh"
 
@@ -47,148 +40,92 @@ namespace {
 
 using namespace scan_tile;
 
-template <int BITS, bool COSINE, int SEG>
-__global__ void __launch_bounds__(NTHREADS)
-segmin_kernel(const float* __restrict__ queries,  // (Q, K) f32, zero-padded
-              const void* __restrict__ codes,     // (N, row_elems)
-              const float* __restrict__ norms,    // (N,)
-              const uint8_t* __restrict__ valid,  // (N,) bool
-              const float* __restrict__ qn2,      // (Q,)
-              const float* __restrict__ qsum,     // (Q,)
-              float* __restrict__ out,            // (Q, N / SEG)
-              int Q, long N, int K, int row_elems, float scale,
-              float offset) {
-  static_assert(SEG % TX == 0 && BR % SEG == 0, "SEG must be 16..128");
-  constexpr int J = SEG / TX;   // rows of one segment per thread
-  constexpr int NS = BR / SEG;  // segments per tile
+template <int BQ, bool COSINE>
+struct SegMin {
+  static constexpr int TQ = Tile<BQ>::TQ;
+  static constexpr int RUNS = TR / 4;  // runs of 4 rows, 64 rows apart
 
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const long row0 = static_cast<long>(blockIdx.x) * BR;
-  const int q0 = blockIdx.y * BQ;
-
-  float acc[TQ][TR];
-  accumulate<BITS>(queries, codes, Q, N, K, row_elems, row0, q0, acc);
-
-  // epilogue: surrogate per (query, row), then the segment minimum
-  float vn[TR];
-  bool vok[TR];
+  static __device__ __forceinline__ void tile(const Args& a,
+                                              const float (&acc)[TQ][TR],
+                                              const Lane<BQ>& l, int q0,
+                                              long row0) {
+    float vn[TR];
+    bool vok[TR];
+    row_terms<BQ>(a, l, row0, vn, vok);
+    const int seg = a.seg;
+    const int lanes = (seg < 64 ? seg : 64) / 4;  // row lanes a segment
+    const long nseg = a.N / seg;
+    float* out = static_cast<float*>(a.out);
 #pragma unroll
-  for (int j = 0; j < TR; ++j) {
-    const long row = row0 + tx + TX * j;
-    vok[j] = row < N && valid[row] != 0;
-    vn[j] = row < N ? norms[row] : 0.f;
-  }
-  const long nseg = N / SEG;
+    for (int i = 0; i < TQ; ++i) {
+      // every lane computes (the shuffles need the whole warp); queries
+      // past Q are not stored
+      const int q = q0 + l.query(i);
+      const bool qok = q < a.Q;
+      const int qc = qok ? q : a.Q - 1;
+      const float n2 = a.qn2[qc];
+      const float off = a.offset * a.qsum[qc];
+      float m[RUNS];  // each run of 4 rows folded
 #pragma unroll
-  for (int i = 0; i < TQ; ++i) {
-    const int q = q0 + ty * TQ + i;
-    const bool qok = q < Q;  // whole half-warp shares q: no divergence
-    const float n2 = qok ? qn2[q] : 0.f;
-    const float off = qok ? offset * qsum[q] : 0.f;
-    float d[TR];
+      for (int h = 0; h < RUNS; ++h) {
+        m[h] = surrogate<COSINE>(acc[i][h * 4], a.scale, off, n2, vn[h * 4],
+                                 vok[h * 4]);
 #pragma unroll
-    for (int j = 0; j < TR; ++j)
-      d[j] = surrogate<COSINE>(acc[i][j], scale, off, n2, vn[j], vok[j]);
+        for (int j = 1; j < 4; ++j)
+          m[h] = fminf(m[h], surrogate<COSINE>(acc[i][h * 4 + j], a.scale,
+                                               off, n2, vn[h * 4 + j],
+                                               vok[h * 4 + j]));
+      }
+      if (seg == 128) {  // runs 2p and 2p + 1: one 128-row segment
 #pragma unroll
-    for (int s = 0; s < NS; ++s) {
-      float m = d[s * J];
+        for (int h = 0; h < RUNS; h += 2) m[h] = fminf(m[h], m[h + 1]);
+      }
+      for (int o = 1; o < lanes; o <<= 1) {
 #pragma unroll
-      for (int jj = 1; jj < J; ++jj) m = fminf(m, d[s * J + jj]);
+        for (int h = 0; h < RUNS; ++h)
+          m[h] = fminf(m[h], __shfl_xor_sync(0xffffffffu, m[h], o));
+      }
+      if (!qok || l.rl % lanes != 0) continue;
 #pragma unroll
-      for (int lane = TX / 2; lane >= 1; lane >>= 1)
-        m = fminf(m, __shfl_xor_sync(0xffffffffu, m, lane));
-      const long seg = row0 / SEG + s;
-      if (qok && tx == s && seg < nseg) out[static_cast<long>(q) * nseg + seg] = m;
+      for (int h = 0; h < RUNS; ++h) {
+        if (seg == 128 && (h & 1)) continue;
+        const long s = (row0 + l.row(h * 4)) / seg;
+        if (s < nseg) out[static_cast<long>(q) * nseg + s] = m[h];
+      }
     }
   }
-}
+};
 
-template <int BITS, int SEG>
-void launch(bool cosine, dim3 grid, cudaStream_t st, const float* queries,
-            const void* codes, const float* norms, const uint8_t* valid,
-            const float* qn2, const float* qsum, float* out, int Q, long N,
-            int K, int row_elems, float scale, float offset) {
-  if (cosine)
-    segmin_kernel<BITS, true, SEG><<<grid, NTHREADS, 0, st>>>(
-        queries, codes, norms, valid, qn2, qsum, out, Q, N, K, row_elems,
-        scale, offset);
-  else
-    segmin_kernel<BITS, false, SEG><<<grid, NTHREADS, 0, st>>>(
-        queries, codes, norms, valid, qn2, qsum, out, Q, N, K, row_elems,
-        scale, offset);
-}
-
-template <int SEG>
-int launch_bits(int bits, bool cosine, dim3 grid, cudaStream_t st,
-                const float* queries, const void* codes, const float* norms,
-                const uint8_t* valid, const float* qn2, const float* qsum,
-                float* out, int Q, long N, int K, int row_elems, float scale,
-                float offset) {
-  switch (bits) {
-    case 4:
-      launch<4, SEG>(cosine, grid, st, queries, codes, norms, valid, qn2,
-                     qsum, out, Q, N, K, row_elems, scale, offset);
-      return 0;
-    case 8:
-      launch<8, SEG>(cosine, grid, st, queries, codes, norms, valid, qn2,
-                     qsum, out, Q, N, K, row_elems, scale, offset);
-      return 0;
-    case 16:
-      launch<16, SEG>(cosine, grid, st, queries, codes, norms, valid, qn2,
-                      qsum, out, Q, N, K, row_elems, scale, offset);
-      return 0;
-    case 32:
-      launch<32, SEG>(cosine, grid, st, queries, codes, norms, valid, qn2,
-                      qsum, out, Q, N, K, row_elems, scale, offset);
-      return 0;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
+template <int BQ>
+using SegMinCos = SegMin<BQ, true>;
+template <int BQ>
+using SegMinEuc = SegMin<BQ, false>;
 
 }  // namespace
 
-// C entry point (bound with ctypes).  bits selects the code decoding: 4
-// (packed nibbles, K = 2 * row_elems), 8, 16, or 32 (f32 codes, also used
-// for 64-bit collections).  For 32-bit pass scale = 1, offset = 0.  seg is
-// 16, 32, 64 or 128, and N must be a multiple of it.  Returns
+// C entry point (bound with ctypes).  qt is the (Kp, Qp) f32 queries,
+// transposed and zero-padded (Kp a multiple of 16 holding the K decoded
+// dims, 4-bit: K = 2 * row_elems; Qp a multiple of `tile`); qn2 and qsum
+// are the (Q,) |q|^2 and sum(q); codes are (N, row_bytes) bytes, read in
+// copies of `vec` bytes (16, 8, 4, 2 or 1; at most 8 for 4-bit codes),
+// which must divide row_bytes and the codes' address.  bits selects the
+// decoding: 4 (packed nibbles), 8, 16, or 32 (f32 codes, also used for
+// 64-bit collections; pass scale = 1, offset = 0).  seg is 16, 32, 64 or
+// 128 and divides N; tile is the query tile, 16, 32, 64 or 128.  Returns
 // cudaGetLastError() after the launch.
-extern "C" int segmin_launch(const float* queries, const void* codes,
+extern "C" int segmin_launch(const float* qt, const void* codes,
                              const float* norms, const uint8_t* valid,
                              const float* qn2, const float* qsum, float* out,
-                             int Q, long N, int K, int row_elems, int bits,
-                             int cosine, float scale, float offset, int seg,
-                             void* stream) {
+                             int Q, int Qp, long N, int Kp, int row_bytes,
+                             int bits, int cosine, float scale, float offset,
+                             int seg, int tile, int vec, void* stream) {
   if (Q <= 0 || N <= 0) return 0;
-  const dim3 grid(static_cast<unsigned>((N + BR - 1) / BR),
-                  static_cast<unsigned>((Q + BQ - 1) / BQ));
+  const Args a{qt,  static_cast<const uint8_t*>(codes), norms, valid, qn2,
+               qsum, out, Q, Qp, N, Kp, row_bytes, scale, offset, vec, seg};
+  if (bad_args(a, bits, tile) ||
+      (seg != 16 && seg != 32 && seg != 64 && seg != 128) || N % seg)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  int rc;
-  switch (seg) {
-    case 16:
-      rc = launch_bits<16>(bits, cosine, grid, st, queries, codes, norms,
-                           valid, qn2, qsum, out, Q, N, K, row_elems, scale,
-                           offset);
-      break;
-    case 32:
-      rc = launch_bits<32>(bits, cosine, grid, st, queries, codes, norms,
-                           valid, qn2, qsum, out, Q, N, K, row_elems, scale,
-                           offset);
-      break;
-    case 64:
-      rc = launch_bits<64>(bits, cosine, grid, st, queries, codes, norms,
-                           valid, qn2, qsum, out, Q, N, K, row_elems, scale,
-                           offset);
-      break;
-    case 128:
-      rc = launch_bits<128>(bits, cosine, grid, st, queries, codes, norms,
-                            valid, qn2, qsum, out, Q, N, K, row_elems, scale,
-                            offset);
-      break;
-    default:
-      rc = static_cast<int>(cudaErrorInvalidValue);
-  }
-  if (rc != 0) return rc;
-  return static_cast<int>(cudaGetLastError());
+  return cosine ? launch_bits<SegMinCos>(a, bits, tile, st)
+                : launch_bits<SegMinEuc>(a, bits, tile, st);
 }

@@ -1,4 +1,6 @@
-// K4: the full (Q, N) surrogate-distance surface.
+// K4 in fp32 FMA: the full (Q, N) surrogate-distance surface, for the code
+// widths the int8 route (segmin_i8.cu) does not take: 4-, 16-bit and f32
+// (32- and 64-bit collections) codes, and 8-bit codes when called directly.
 //
 // Replaces syzgydb_tpu/ops/pallas_scan.py::_surface_kernel (wrapper
 // score_surface).  For every query q and row r it writes the surrogate
@@ -8,21 +10,24 @@
 // rounded queries to bf16 for 4- and 8-bit codes outside exact mode; this
 // one rounds neither queries nor codes (fp32 FMA, as K1), so its f32 output
 // is the exact-mode surface at every width and its bf16 output differs
-// from that only by the final rounding.
+// from that only by the final rounding.  Like the TPU kernel, which keeps
+// the whole (Q, D) query block resident and grids over N alone, the small
+// query tiles (16, 32) stream each code row once per launch.
 //
-// Design: K1's tile loop (scan_tile.cuh) without the segment-min epilogue.
-// Thread tx holds rows tx + 16 j, so for each (query, j) the 16 lanes of a
-// half-warp store 16 consecutive rows: every store instruction of a warp
-// writes two full 64-byte (f32) or 32-byte (bf16) runs along N.  The
-// Collection's non-fused branch (radius escalation, and batches past the
-// fused scan's k bound) selects its candidates from this surface.
+// Design: the tile loop of scan_tile.cuh (query-tile variants chosen from Q
+// by ops/scan.py::fp32_query_tile, a cp.async ring of raw code stages) with
+// a store epilogue: a thread holds runs of 4 consecutive rows, so for
+// each of its queries the 16 row lanes of a half-warp store 256 contiguous
+// bytes (f32) or 128 (bf16) along N, 16 or 8 bytes a lane when N is a
+// multiple of 4.  The Collection's non-fused branch (radius
+// escalation, and batches past the fused scan's k bound) selects its
+// candidates from this surface.
 //
-// Bound on the H100: at Q = 128, N = 1M, D = 384 the 2*Q*N*D = 0.10 TFLOP
-// take 0.10 ms at the bf16 tensor rate, while the f32 surface alone is
-// 512 MiB (0.16 ms at 3.35 TB/s): the output makes it byte-bound from
-// Q ~ 100 at f32.  This kernel runs the products at the fp32 CUDA-core
-// rate (~1.5 ms at 67 TFLOP/s), so it is compute-bound in practice;
-// tensor cores are the same later work as for K1.
+// Bound on the H100 (1,048,576 x 384): at Q = 16 on f32 codes the 1.61 GB
+// of codes (0.48 ms at 3.35 TB/s) outweigh the 64 MiB surface and the
+// 0.19 ms of fp32 FMAs; on 4- and 16-bit codes the FMAs bound it; at
+// Q = 128 the FMAs (1.54 ms at 67 TFLOP/s) bound it, the 512 MiB f32
+// surface taking 0.16 ms of bytes.
 
 #include <cuda_bf16.h>
 
@@ -32,124 +37,94 @@ namespace {
 
 using namespace scan_tile;
 
-__device__ __forceinline__ void store(float* out, long i, float v) {
-  out[i] = v;
+__device__ __forceinline__ void store4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
 }
 
-__device__ __forceinline__ void store(__nv_bfloat16* out, long i, float v) {
-  out[i] = __float2bfloat16_rn(v);
+__device__ __forceinline__ void store4(__nv_bfloat16* p,
+                                       const float (&v)[4]) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v[0], v[1]);
+  const __nv_bfloat162 hi = __floats2bfloat162_rn(v[2], v[3]);
+  uint2 w;
+  w.x = *reinterpret_cast<const uint32_t*>(&lo);
+  w.y = *reinterpret_cast<const uint32_t*>(&hi);
+  *reinterpret_cast<uint2*>(p) = w;
 }
 
-template <int BITS, bool COSINE, typename OutT>
-__global__ void __launch_bounds__(NTHREADS)
-surface_kernel(const float* __restrict__ queries,  // (Q, K) f32, zero-padded
-               const void* __restrict__ codes,     // (N, row_elems)
-               const float* __restrict__ norms,    // (N,)
-               const uint8_t* __restrict__ valid,  // (N,) bool
-               const float* __restrict__ qn2,      // (Q,)
-               const float* __restrict__ qsum,     // (Q,)
-               OutT* __restrict__ out,             // (Q, N)
-               int Q, long N, int K, int row_elems, float scale,
-               float offset) {
-  const int tx = threadIdx.x % TX;
-  const int ty = threadIdx.x / TX;
-  const long row0 = static_cast<long>(blockIdx.x) * BR;
-  const int q0 = blockIdx.y * BQ;
+__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
 
-  float acc[TQ][TR];
-  accumulate<BITS>(queries, codes, Q, N, K, row_elems, row0, q0, acc);
+__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
+  *p = __float2bfloat16_rn(v);
+}
 
-  float vn[TR];
-  bool vok[TR];
+template <int BQ, bool COSINE, typename OutT>
+struct Surface {
+  static constexpr int TQ = Tile<BQ>::TQ;
+
+  static __device__ __forceinline__ void tile(const Args& a,
+                                              const float (&acc)[TQ][TR],
+                                              const Lane<BQ>& l, int q0,
+                                              long row0) {
+    float vn[TR];
+    bool vok[TR];
+    row_terms<BQ>(a, l, row0, vn, vok);
+    OutT* out = static_cast<OutT*>(a.out);
+    const bool vec = (a.N & 3) == 0;  // every run of 4 is 4-aligned
 #pragma unroll
-  for (int j = 0; j < TR; ++j) {
-    const long row = row0 + tx + TX * j;
-    vok[j] = row < N && valid[row] != 0;
-    vn[j] = row < N ? norms[row] : 0.f;
-  }
+    for (int i = 0; i < TQ; ++i) {
+      const int q = q0 + l.query(i);
+      if (q >= a.Q) continue;
+      const float n2 = a.qn2[q];
+      const float off = a.offset * a.qsum[q];
+      OutT* orow = out + static_cast<long>(q) * a.N;
 #pragma unroll
-  for (int i = 0; i < TQ; ++i) {
-    const int q = q0 + ty * TQ + i;
-    if (q >= Q) break;  // queries rise with i: the rest are past Q too
-    const float n2 = qn2[q];
-    const float off = offset * qsum[q];
-    const long base = static_cast<long>(q) * N;
+      for (int h = 0; h < TR / 4; ++h) {
+        const long r = row0 + l.row(h * 4);
+        float v[4];
 #pragma unroll
-    for (int j = 0; j < TR; ++j) {
-      const long row = row0 + tx + TX * j;
-      if (row < N)
-        store(out, base + row,
-              surrogate<COSINE>(acc[i][j], scale, off, n2, vn[j], vok[j]));
+        for (int j = 0; j < 4; ++j)
+          v[j] = surrogate<COSINE>(acc[i][h * 4 + j], a.scale, off, n2,
+                                   vn[h * 4 + j], vok[h * 4 + j]);
+        if (vec && r + 3 < a.N) {
+          store4(orow + r, v);
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j)
+            if (r + j < a.N) store1(orow + r + j, v[j]);
+        }
+      }
     }
   }
-}
+};
 
-template <int BITS, typename OutT>
-void launch(bool cosine, dim3 grid, cudaStream_t st, const float* queries,
-            const void* codes, const float* norms, const uint8_t* valid,
-            const float* qn2, const float* qsum, OutT* out, int Q, long N,
-            int K, int row_elems, float scale, float offset) {
-  if (cosine)
-    surface_kernel<BITS, true, OutT><<<grid, NTHREADS, 0, st>>>(
-        queries, codes, norms, valid, qn2, qsum, out, Q, N, K, row_elems,
-        scale, offset);
-  else
-    surface_kernel<BITS, false, OutT><<<grid, NTHREADS, 0, st>>>(
-        queries, codes, norms, valid, qn2, qsum, out, Q, N, K, row_elems,
-        scale, offset);
-}
-
-template <typename OutT>
-int launch_bits(int bits, bool cosine, dim3 grid, cudaStream_t st,
-                const float* queries, const void* codes, const float* norms,
-                const uint8_t* valid, const float* qn2, const float* qsum,
-                OutT* out, int Q, long N, int K, int row_elems, float scale,
-                float offset) {
-  switch (bits) {
-    case 4:
-      launch<4>(cosine, grid, st, queries, codes, norms, valid, qn2, qsum,
-                out, Q, N, K, row_elems, scale, offset);
-      return 0;
-    case 8:
-      launch<8>(cosine, grid, st, queries, codes, norms, valid, qn2, qsum,
-                out, Q, N, K, row_elems, scale, offset);
-      return 0;
-    case 16:
-      launch<16>(cosine, grid, st, queries, codes, norms, valid, qn2, qsum,
-                 out, Q, N, K, row_elems, scale, offset);
-      return 0;
-    case 32:
-      launch<32>(cosine, grid, st, queries, codes, norms, valid, qn2, qsum,
-                 out, Q, N, K, row_elems, scale, offset);
-      return 0;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
+template <int BQ>
+using SurfCosF = Surface<BQ, true, float>;
+template <int BQ>
+using SurfEucF = Surface<BQ, false, float>;
+template <int BQ>
+using SurfCosB = Surface<BQ, true, __nv_bfloat16>;
+template <int BQ>
+using SurfEucB = Surface<BQ, false, __nv_bfloat16>;
 
 }  // namespace
 
-// C entry point (bound with ctypes).  Arguments as segmin_launch's; out is
-// (Q, N) f32 when out_bf16 == 0, else (Q, N) bf16.  Returns
-// cudaGetLastError() after the launch.
-extern "C" int surface_launch(const float* queries, const void* codes,
+// C entry point (bound with ctypes).  Arguments as segmin_launch's, with
+// out (Q, N) f32 when out_bf16 == 0, else (Q, N) bf16, in place of seg; any
+// N.  Returns cudaGetLastError() after the launch.
+extern "C" int surface_launch(const float* qt, const void* codes,
                               const float* norms, const uint8_t* valid,
                               const float* qn2, const float* qsum, void* out,
-                              int Q, long N, int K, int row_elems, int bits,
-                              int cosine, float scale, float offset,
-                              int out_bf16, void* stream) {
+                              int Q, int Qp, long N, int Kp, int row_bytes,
+                              int bits, int cosine, float scale, float offset,
+                              int out_bf16, int tile, int vec, void* stream) {
   if (Q <= 0 || N <= 0) return 0;
-  const dim3 grid(static_cast<unsigned>((N + BR - 1) / BR),
-                  static_cast<unsigned>((Q + BQ - 1) / BQ));
+  const Args a{qt,  static_cast<const uint8_t*>(codes), norms, valid, qn2,
+               qsum, out, Q, Qp, N, Kp, row_bytes, scale, offset, vec, 0};
+  if (bad_args(a, bits, tile)) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rc =
-      out_bf16
-          ? launch_bits(bits, cosine, grid, st, queries, codes, norms, valid,
-                        qn2, qsum, static_cast<__nv_bfloat16*>(out), Q, N, K,
-                        row_elems, scale, offset)
-          : launch_bits(bits, cosine, grid, st, queries, codes, norms, valid,
-                        qn2, qsum, static_cast<float*>(out), Q, N, K,
-                        row_elems, scale, offset);
-  if (rc != 0) return rc;
-  return static_cast<int>(cudaGetLastError());
+  if (out_bf16)
+    return cosine ? launch_bits<SurfCosB>(a, bits, tile, st)
+                  : launch_bits<SurfEucB>(a, bits, tile, st);
+  return cosine ? launch_bits<SurfCosF>(a, bits, tile, st)
+                : launch_bits<SurfEucF>(a, bits, tile, st);
 }

@@ -31,7 +31,9 @@ segment-interleaved transposed operand, no 128-lane slab and no lean
 placement.  K1 reads the row-major (N, W) codes, and its minima are f32 at
 every width, so the f32-surface tie margin (6) applies to high and exact
 alike.  A CUDA tensor launches the kernel (or raises); a CPU tensor runs
-the plain version.  The 8-bit route of K1, K5/K6 and K4 multiplies int8
+the plain version.  The fp32 kernels run at a query tile sized to the batch
+(fp32_query_tile: 16, 32, 64 or 128 queries), the same sums in the same
+order at every tile.  The 8-bit route of K1, K5/K6 and K4 multiplies int8
 slices of the query (slice_queries) on tensor cores, so its surfaces also
 carry the slicing error dq_rel, which the flags' bound (surface_delta)
 takes wherever that route ran (fused_scan_topk and surface_topk alike).
@@ -232,13 +234,63 @@ def _kernel_operands(queries, codes, norms, valid, bits):
 
 
 # segmin_launch and surface_launch take the same arguments: seven pointers
-# (queries, codes, norms, valid, qn2, qsum, out), Q, N, K, row_elems, bits,
-# cosine, scale, offset, then seg (segmin) or out_bf16 (surface), and the
-# stream
+# (transposed queries, codes, norms, valid, qn2, qsum, out), Q, Qp, N, Kp,
+# row_bytes, bits, cosine, scale, offset, then seg (segmin) or out_bf16
+# (surface), the query tile, the code copy width and the stream
 _SCAN_ENTRY_ARGTYPES = [ctypes.c_void_p] * 7 + [
-    ctypes.c_int, ctypes.c_long, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int,
-    ctypes.c_void_p]
+    ctypes.c_int, ctypes.c_int, ctypes.c_long, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
+    ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+
+# the fp32 kernels' query tiles (csrc/scan_tile.cuh's variants), and the
+# multiple of decoded dims the queries are zero-padded to (a stage of
+# their tile loop)
+FP32_TILES = (16, 32, 64, 128)
+FP32_K_PAD = 16
+
+
+def fp32_query_tile(q: int) -> int:
+    """The query tile of the fp32 kernels' launch for Q queries: the
+    smallest variant that holds them all, else the largest (Q past 128
+    runs ceil(Q / 128) tiles).  A launch computes Q rounded up to a
+    multiple of its tile, so Q = 16 computes 16 queries and Q = 17 32."""
+    return next((t for t in FP32_TILES if q <= t), FP32_TILES[-1])
+
+
+def _launch_fp32(name: str, out, last: int, queries, codes, norms, valid, *,
+                 bits: int, metric: str, tile=None, defines: tuple = ()):
+    """Launch csrc/<name>.cu's fp32 kernel (segmin_launch with `last` =
+    seg, surface_launch with `last` = out_bf16) into `out`, at the query
+    tile `tile` (None: fp32_query_tile's; every tile gives the same
+    output), from the library built with `defines` (() : the shipped one;
+    the others are measurement builds)."""
+    q = queries.shape[0]
+    n, w = codes.shape
+    qx, qn2, qsum, k_dims, scale, offset = _kernel_operands(
+        queries, codes, norms, valid, bits)
+    tile = fp32_query_tile(q) if tile is None else tile
+    if tile not in FP32_TILES:
+        raise ValueError(f"the fp32 kernels are built for query tiles of "
+                         f"{FP32_TILES}, not {tile}")
+    # queries transposed (Kp, Qp), zero-padded to whole stages and tiles
+    qp = -(-q // tile) * tile
+    kp = -(-k_dims // FP32_K_PAD) * FP32_K_PAD
+    qt = torch.zeros((kp, qp), dtype=torch.float32, device=codes.device)
+    qt[:k_dims, :q] = qx.T
+    # code copy width: the widest that divides every row start (the
+    # kernel narrows it to a stage's bytes a row)
+    row_bytes = w * codes.element_size()
+    ptr = codes.data_ptr()
+    vec = next(v for v in (16, 8, 4, 2, 1)
+               if row_bytes % v == 0 and ptr % v == 0)
+    fn = cuda_build.entry(name, f"{name}_launch", _SCAN_ENTRY_ARGTYPES,
+                          defines)
+    rc = fn(qt.data_ptr(), ptr, norms.data_ptr(), valid.data_ptr(),
+            qn2.data_ptr(), qsum.data_ptr(), out.data_ptr(), q, qp, n, kp,
+            row_bytes, 32 if bits == 64 else bits,
+            int(metric != "euclidean"), scale, offset, last, tile, vec,
+            cuda_build.launch_stream(codes.device))
+    cuda_build.check(rc, name)
 
 
 def _route(codes, bits: int) -> str:
@@ -400,21 +452,14 @@ def _segmin_i8(queries, codes, norms, valid, *, metric: str, seg: int):
 def segmin_fp32(queries, codes, norms, valid, *, bits: int, metric: str,
                 seg: int):
     """The fp32 segment-min kernel (csrc/segmin.cu) on CUDA tensors, at any
-    width and at seg 16, 32, 64 or 128."""
+    width and at seg 16, 32, 64 or 128, on the query tile fp32_query_tile
+    picks for Q."""
     global launches, free_seg_launches
     _check_kernel_seg(seg)
-    q = queries.shape[0]
-    n, w = codes.shape
-    qx, qn2, qsum, k_dims, scale, offset = _kernel_operands(
-        queries, codes, norms, valid, bits)
-    out = torch.empty((q, n // seg), dtype=torch.float32, device=codes.device)
-    fn = cuda_build.entry("segmin", "segmin_launch", _SCAN_ENTRY_ARGTYPES)
-    rc = fn(qx.data_ptr(), codes.data_ptr(), norms.data_ptr(),
-            valid.data_ptr(), qn2.data_ptr(), qsum.data_ptr(), out.data_ptr(),
-            q, n, k_dims, w, 32 if bits == 64 else bits,
-            int(metric != "euclidean"), scale, offset, seg,
-            cuda_build.launch_stream(codes.device))
-    cuda_build.check(rc, "segmin")
+    out = torch.empty((queries.shape[0], codes.shape[0] // seg),
+                      dtype=torch.float32, device=codes.device)
+    _launch_fp32("segmin", out, seg, queries, codes, norms, valid, bits=bits,
+                 metric=metric)
     if seg == DEFAULT_SEG:
         launches += 1
     else:
@@ -471,23 +516,15 @@ def _surface_i8(queries, codes, norms, valid, *, metric: str, exact: bool):
 
 def surface_fp32(queries, codes, norms, valid, *, bits: int, metric: str,
                  exact: bool):
-    """K4's fp32 kernel (csrc/surface.cu) on CUDA tensors, at any width: it
-    rounds neither queries nor codes, so its f32 surface is within
-    surface_delta of an exact evaluation."""
+    """K4's fp32 kernel (csrc/surface.cu) on CUDA tensors, at any width, on
+    the query tile fp32_query_tile picks for Q: it rounds neither queries
+    nor codes, so its f32 surface is within surface_delta of an exact
+    evaluation."""
     global surface_launches
-    q = queries.shape[0]
-    n, w = codes.shape
-    qx, qn2, qsum, k_dims, scale, offset = _kernel_operands(
-        queries, codes, norms, valid, bits)
-    out = torch.empty((q, n), device=codes.device,
+    out = torch.empty((queries.shape[0], codes.shape[0]), device=codes.device,
                       dtype=torch.float32 if exact else torch.bfloat16)
-    fn = cuda_build.entry("surface", "surface_launch", _SCAN_ENTRY_ARGTYPES)
-    rc = fn(qx.data_ptr(), codes.data_ptr(), norms.data_ptr(),
-            valid.data_ptr(), qn2.data_ptr(), qsum.data_ptr(), out.data_ptr(),
-            q, n, k_dims, w, 32 if bits == 64 else bits,
-            int(metric != "euclidean"), scale, offset, int(not exact),
-            cuda_build.launch_stream(codes.device))
-    cuda_build.check(rc, "surface")
+    _launch_fp32("surface", out, int(not exact), queries, codes, norms, valid,
+                 bits=bits, metric=metric)
     surface_launches += 1
     return out
 

@@ -57,9 +57,15 @@ def _corpus(bits, n, d, q, seed, zero_query=True, dead=(64, 96)):
     return queries, codes, norms, valid
 
 
+# the fp32 kernels' query tiles at their edges (Q = 1, 16, 17, 64, 65),
+# on N that is no multiple of a row tile (128, 256, 512 rows)
+_TILE_EDGES = [(1, 384), (16, 384), (17, 100), (64, 384), (65, 48)]
+
+
 @pytest.mark.parametrize("metric", ["euclidean", "cosine"])
 @pytest.mark.parametrize("bits", [4, 8, 16, 32, 64])
-@pytest.mark.parametrize("n,d,q", [(4096, 384, 130), (1056, 33, 3)])
+@pytest.mark.parametrize("n,d,q", [(4096, 384, 130), (1056, 33, 3)] +
+                         [(4160, d, q) for q, d in _TILE_EDGES])
 def test_segmin_kernel_matches_plain(cuda, bits, metric, n, d, q):
     queries, codes, norms, valid = _corpus(bits, n, d, q, seed=bits)
     tq, tc, tn, tv = (torch.from_numpy(a).to(cuda)
@@ -142,7 +148,8 @@ def _within_delta(got, want, tq, tn, tv, metric, d, extra=None, bits=None):
 
 @pytest.mark.parametrize("seg", [16, 64, 128])
 @pytest.mark.parametrize("bits", [4, 8, 16, 64])
-@pytest.mark.parametrize("n,d,q", [(4096, 384, 130), (1152, 33, 3)])
+@pytest.mark.parametrize("n,d,q", [(4096, 384, 130), (1152, 33, 3)] +
+                         [(4224, d, q) for q, d in _TILE_EDGES])
 def test_free_seg_segmin_kernel_matches_plain(cuda, bits, seg, n, d, q):
     metric = "cosine" if bits in (8, 64) else "euclidean"
     queries, codes, norms, valid = _corpus(bits, n, d, q, seed=seg)
@@ -168,7 +175,8 @@ def test_free_seg_segmin_kernel_matches_plain(cuda, bits, seg, n, d, q):
 @pytest.mark.parametrize("exact", [True, False])
 @pytest.mark.parametrize("metric", ["euclidean", "cosine"])
 @pytest.mark.parametrize("bits", [4, 8, 16, 32, 64])
-@pytest.mark.parametrize("n,d,q", [(4096, 384, 130), (1000, 33, 3)])
+@pytest.mark.parametrize("n,d,q", [(4096, 384, 130), (1000, 33, 3)] +
+                         [(4099, d, q) for q, d in _TILE_EDGES])
 def test_surface_kernel_matches_plain(cuda, bits, metric, exact, n, d, q):
     queries, codes, norms, valid = _corpus(bits, n, d, q, seed=bits + 1)
     tq, tc, tn, tv = (torch.from_numpy(a).to(cuda)
@@ -193,6 +201,38 @@ def test_surface_kernel_matches_plain(cuda, bits, metric, exact, n, d, q):
             a.clamp_min(1e-30))) - 8), torch.zeros_like(a))
     _within_delta(got.float(), want, tq, tn, tv, metric, d, half_ulp,
                   bits=bits)
+
+
+@pytest.mark.parametrize("bits", [4, 16, 64])
+@pytest.mark.parametrize("q", [1, 16, 17, 64, 65])
+def test_fp32_kernels_deterministic_at_every_tile(cuda, bits, q):
+    """The fp32 tile loop sums each output in dim order with no atomics and
+    no split of K, so two launches, and launches at every query tile, give
+    bit-identical K1 (seg 32), K5/K6 (seg 128) and K4 (f32 and bf16)."""
+    queries, codes, norms, valid = _corpus(bits, 4224, 384, q, seed=q)
+    tq, tc, tn, tv = (torch.from_numpy(a).to(cuda)
+                      for a in (queries, codes, norms, valid))
+    n = tc.shape[0]
+
+    def launch(name, last, metric, shape, dtype, tile):
+        out = torch.empty(shape, dtype=dtype, device=cuda)
+        scan._launch_fp32(name, out, last, tq, tc, tn, tv, bits=bits,
+                          metric=metric, tile=tile)
+        return out
+
+    runs = [
+        lambda t: launch("segmin", 32, "cosine", (q, n // 32), torch.float32,
+                         t),
+        lambda t: launch("segmin", 128, "euclidean", (q, n // 128),
+                         torch.float32, t),
+        lambda t: launch("surface", 0, "cosine", (q, n), torch.float32, t),
+        lambda t: launch("surface", 1, "euclidean", (q, n), torch.bfloat16,
+                         t)]
+    for run in runs:
+        first = run(None)
+        assert torch.equal(first, run(None))
+        for tile in scan.FP32_TILES:
+            assert torch.equal(first, run(tile)), tile
 
 
 def _half_ulp_bf16(a):
