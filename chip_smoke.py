@@ -89,13 +89,33 @@ JAX or of the JAX package.  Phases, each of which fails the run:
      bit-identical; then K1 at Q = 1024, 64 and 16 and K4 at Q = 128 and
      16 timed beside fp32 (TF32 off) and bf16 torch.matmul, and K1 on
      64-bit codes at Q = 16, 32, 64 on every tile that holds them.
+  5. embedder (embedder: device): (1) the full-width MiniLM-L6-shaped
+     encoder (vocab 30522, hidden 384, 6 layers, 12 heads, MLP 1536,
+     max_len 128) in both archs with seeded random weights, bf16 on the
+     card against f32 on the CPU with the same weights, within twice the
+     CPU's own bf16-against-f32 error; (2) the shipped checkpoint on the
+     card clears the retrieval gate (>= 0.9) and random weights of its
+     config do not (< 0.5); (3) the REST text flow of
+     tests/test_embedder.py (12 text inserts, 12 held-out text queries,
+     >= 11 top-1); (4) 131,072 corpus documents inserted as text through
+     the REST server with the full-width preln model (POSTs of 1,024) into
+     a 384-d cosine collection at quantization 8, then 32 keep-alive
+     clients x 16 high text searches (recall@10 1.0 against the fp64
+     oracle for the handlers' own query vectors) and one client x 16
+     default-precision (medium, K2) text searches (ids within the sketch
+     budget's ties of the exact top-10), K1 (int8) and K2 launched, the
+     counters reset before this step and read after; (5) embed ms and
+     texts/s at batch 1, 16, 64, 256 and 1,024 (forward alone on CUDA
+     events, and the whole embed() call), each beside its bound.
 
 The report line (serving numbers under "serving", the 64-bit phase under
-"e2e_64bit") comes before the {"kernels": [...]} line (K1-K6, and K1 and
-K4 on f32 codes with the 64-bit phase's launches and errors; every row's
-bound_ms is the larger of the operations over the bf16 tensor rate and
-the bytes over the memory rate), and the last line is
-{"ok": true, "device": {...}}.
+"e2e_64bit", the embedder's under "embedder") comes before the
+{"kernels": [...]} line (K1-K6, and K1 and K4 on f32 codes with the
+64-bit phase's launches and errors; every row's bound_ms is the larger of
+the operations over the bf16 tensor rate and the bytes over the memory
+rate), and the last line is {"ok": true, "device": {...}}.  The embedder
+has no kernel of its own (no Pallas kernel in the JAX package's models/),
+so it adds no row to the kernels line.
 """
 
 from __future__ import annotations
@@ -2048,6 +2068,374 @@ def kernel_times(coll, state, tq, dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the on-device text embedder (embedder: device)
+# ---------------------------------------------------------------------------
+
+EMB_DOCS, EMB_POST = 1 << 17, 1024
+EMB_BATCHES = (1, 16, 64, 256, 1024)
+EMB_CLIENTS, EMB_PER_CLIENT = 32, 16
+
+
+def corpus_docs(n: int, seed: int) -> tuple[list, list]:
+    """n documents of the synthetic topical corpus and their topics."""
+    from syzgydb_tpu_torch.models import train_synthetic as ts
+
+    topics, filler = ts.make_vocab()
+    rng = np.random.default_rng(seed)
+    picks = rng.integers(0, ts.N_TOPICS, size=n).tolist()
+    return [ts.sample_doc(rng, topics[t], filler) for t in picks], picks
+
+
+def embed_bound(cfg, n_params: int, n_texts: int) -> dict:
+    """The bound of one forward of n_texts at max_len tokens: the dense
+    layers' and attention's products (2 operations a multiply-add) over
+    the bf16 tensor rate, beside every weight read once in bf16 over the
+    memory rate."""
+    seq, h = cfg.max_len, cfg.hidden
+    dense = 2 * seq * (4 * h * h + 2 * h * cfg.mlp_dim)
+    attn = 4 * seq * seq * h
+    ops = n_texts * cfg.layers * (dense + attn)
+    out = bound(ops, 2 * n_params)
+    out.update(gflop=ops / 1e9, weight_mb=2 * n_params / 1e6)
+    return out
+
+
+def embed_full_width(dev) -> dict:
+    """(1) Both archs at full width with seeded random weights: bf16 on the
+    card against f32 on the CPU, same weights and texts.  The tolerance is
+    derived from the CPU alone: twice the largest error of the CPU's own
+    bf16 run against its f32 run."""
+    from syzgydb_tpu_torch.models.embedder import EmbedderConfig, TextEmbedder
+
+    texts = corpus_docs(29, 5)[0] + ["", "a " * 300, "Hello, World! 123"]
+    out = {}
+    for arch, eps in (("preln", 1e-6), ("bert", 1e-12)):
+        run = {}
+        for dt, where in (("float32", "cpu"), ("bfloat16", "cpu"),
+                          ("bfloat16", dev)):
+            emb = TextEmbedder(EmbedderConfig(arch=arch, ln_eps=eps,
+                                              dtype=dt), seed=11,
+                               device=where)
+            run[dt, str(where)] = emb.embed(texts)
+        want = run["float32", "cpu"]
+        cpu16, card = run["bfloat16", "cpu"], run["bfloat16", str(dev)]
+        tol = 2.0 * float(np.abs(cpu16 - want).max())
+        err = float(np.abs(card - want).max())
+        out[arch] = {"texts": len(texts), "tolerance": tol,
+                     "max_abs_err": err,
+                     "min_cos": float((card * want).sum(1).min()),
+                     "cpu_bf16_max_abs_err": tol / 2.0,
+                     "cpu_bf16_min_cos": float((cpu16 * want).sum(1).min())}
+        log(f"embedder full width {arch}: {out[arch]}")
+        if not np.isfinite(card).all() or err > tol:
+            raise AssertionError(f"embedder {arch}: the card's bf16 run is "
+                                 f"{err} from the CPU's f32, tolerance {tol}")
+    return out
+
+
+def embed_times(dev) -> dict:
+    """Full-width preln in bf16 on the card: the forward alone (CUDA
+    events over back-to-back forwards of pre-tokenized batches) and the
+    whole embed() call (host clock: tokenizing, copies and the result's
+    fetch) at each batch, each beside its bound; then torch.profiler over
+    the largest batch's forward and over one batch-1 embed() (a text
+    search embeds its text alone): kernel time by name, device ops."""
+    from syzgydb_tpu_torch.models.embedder import TextEmbedder
+
+    emb = TextEmbedder(seed=0, device=dev)
+    n_params = sum(p.numel() for p in emb.model.parameters())
+    docs = corpus_docs(max(EMB_BATCHES), 6)[0]
+    out = {"n_params": n_params, "max_len": emb.cfg.max_len, "batches": {}}
+    with torch.inference_mode():
+        for b in EMB_BATCHES:
+            ids, mask = emb.tokenizer.batch_encode(docs[:b])
+            ids = torch.from_numpy(ids.astype(np.int64)).to(dev)
+            mask = torch.from_numpy(mask).to(dev)
+            fwd = cuda_ms(lambda: emb._net(ids, mask),
+                          reps=20 if b < 256 else 5)
+            wall = float(np.median(wall_ms(lambda: emb.embed(docs[:b]),
+                                           reps=10 if b < 256 else 3)))
+            row = {"forward_ms": fwd, "embed_ms": wall,
+                   "texts_per_s": b / wall * 1e3,
+                   **embed_bound(emb.cfg, n_params, b)}
+            out["batches"][b] = row
+            log(f"embed batch {b}: {row}")
+        # where a forward's device time goes, and a lone text's launches
+        out["profile"] = profile_batches(None, [
+            (f"forward_{b}", lambda: emb._net(ids, mask)),
+            ("embed_1", lambda: emb.embed(docs[:1]))])
+    return out
+
+
+def embed_gate(dev) -> dict:
+    """(2) The shipped checkpoint on the card clears the retrieval gate;
+    random weights of its config do not."""
+    from syzgydb_tpu_torch.models import train_synthetic as ts
+    from syzgydb_tpu_torch.models.embedder import TextEmbedder
+
+    trained = ts.retrieval_accuracy(
+        TextEmbedder.from_checkpoint(ts.DEFAULT_CHECKPOINT, device=dev),
+        n_queries=48)
+    rnd = ts.retrieval_accuracy(
+        TextEmbedder(ts.training_config(), seed=123, device=dev), seed=777,
+        n_queries=48)
+    log(f"embedder gate: trained {trained}, random {rnd}")
+    if trained < 0.9 or rnd >= 0.5:
+        raise AssertionError(f"embedder gate: trained {trained} (>= 0.9), "
+                             f"random {rnd} (< 0.5)")
+    return {"trained": trained, "random": rnd}
+
+
+class EmbedServer:
+    """The port's REST server with embedder: device on `dev`, in the empty
+    data folder `folder`; the config and the embed_text seam come back on
+    close."""
+
+    def __init__(self, folder: str, dev, checkpoint: str = ""):
+        from syzgydb_tpu_torch.server import config, embedding, rest
+
+        self.config, self.embedding = config, embedding
+        self.old = config.global_config, embedding.get_embed_text()
+        config.global_config = config.Config(
+            data_folder=folder, html_root="", embedder="device",
+            embedder_checkpoint=checkpoint)
+        try:
+            self.srv = rest.make_server(folder, device=dev)
+            self.httpd, self.port = start_http(self.srv)
+        except BaseException:
+            self.close()
+            raise
+
+    def close(self) -> None:
+        if hasattr(self, "httpd"):
+            self.httpd.shutdown()
+            self.httpd.server_close()
+            for c in self.srv.collections.values():
+                c.close()
+        self.config.global_config = self.old[0]
+        self.embedding.set_embed_text(self.old[1])
+
+
+def embed_rest_flow(dev) -> dict:
+    """(3) tests/test_embedder.py's REST flow on the card: the shipped
+    checkpoint, 12 text inserts at quantization 16, 12 held-out text
+    queries, each must find its document's topic top-1 (>= 11 of 12)."""
+    from syzgydb_tpu_torch.models import train_synthetic as ts
+
+    folder = tempfile.mkdtemp(prefix="syzgy_embed_flow_")
+    es = EmbedServer(folder, dev, ts.DEFAULT_CHECKPOINT)
+    try:
+        base = "/api/v1/collections"
+        http_call(es.port, "POST", base, {
+            "name": "txt", "vector_size": ts.training_config().hidden,
+            "quantization": 16, "distance_function": "cosine"}, 201)
+        topics, filler = ts.make_vocab()
+        rng = np.random.default_rng(31)
+        doc_topics = list(range(0, 36, 3))
+        http_call(es.port, "POST", f"{base}/txt/records", [
+            {"id": i, "text": ts.sample_doc(rng, topics[t], filler),
+             "metadata": {"topic": t}} for i, t in enumerate(doc_topics)],
+            201)
+        hits = 0
+        for t in doc_topics:
+            res = http_call(es.port, "POST", f"{base}/txt/search", {
+                "text": ts.sample_doc(rng, topics[t], filler), "k": 1})
+            hits += int(res["results"][0]["metadata"]["topic"] == t)
+    finally:
+        es.close()
+        shutil.rmtree(folder, ignore_errors=True)
+    log(f"embedder REST flow: {hits} of 12 top-1")
+    if hits < 11:
+        raise AssertionError(f"embedder REST flow: {hits} of 12 top-1")
+    return {"top1_hits": hits, "of": 12}
+
+
+def medium_bounds(coll, qvecs, vecs64):
+    """What any medium answer of `coll` may hold, per query: medium reranks
+    the `budget` rows of least Hamming count, so every candidate set holds
+    the rows below the budget's count (`sure`) and some of those at it
+    (`tied`); the CPU and CUDA torch.topk pick different tied rows.  Counts
+    by the plain K2 on the host; `vecs64[i]` is record i's vector.  -> per
+    query (sure, sure + tied, fp64 top-10 of sure, fp64 top-10 of sure +
+    tied), as sets of ids."""
+    from syzgydb_tpu_torch.ops import hamming_scan
+
+    state = coll._device_state()
+    budget = min(max(coll.options.search_budget, 40), coll.columns.capacity)
+    valid = state["valid"].cpu()
+    qcode = torch.from_numpy(coll.index.encode_np(qvecs).view(np.int32))
+    ham = hamming_scan.hamming_scores_plain(qcode, state["hashes"].cpu(),
+                                            valid)
+    cut = torch.kthvalue(ham, budget, dim=1).values[:, None]
+    ids = np.where(valid.numpy(), coll.columns.ids[:len(valid)], 0)
+    v = vecs64[ids] / np.linalg.norm(vecs64[ids], axis=1, keepdims=True)
+    q = qvecs.astype(np.float64)
+    dist = -(q / np.linalg.norm(q, axis=1, keepdims=True)) @ v.T
+
+    def top10(d, keep):
+        return set(ids[np.argsort(np.where(keep, d, np.inf),
+                                  kind="stable")[:10]].tolist())
+
+    return [(set(ids[s].tolist()), set(ids[m].tolist()), top10(d, s),
+             top10(d, m)) for d, s, m in
+            zip(dist, (ham < cut).numpy(), (ham <= cut).numpy())]
+
+
+def embed_at_scale(dev, tol: float) -> dict:
+    """(4) EMB_DOCS corpus documents inserted as text through the REST
+    server (embedder: device, full-width preln, random weights from seed
+    0) in POSTs of EMB_POST records into a 384-d cosine collection at
+    quantization 8; then EMB_CLIENTS keep-alive clients each send
+    EMB_PER_CLIENT high text searches (k = 10), after a warm-up pass of
+    two each, and one client sends 16 default-precision (medium) text
+    searches: lone queries below the scan crossover, on the sketch index
+    (K2).  High must return the fp64 oracle's top-10 over the stored rows,
+    for the query vector the handler computes (the text embedded alone);
+    medium's ids may differ from the exact top-10 only through rows tied
+    at the sketch budget's Hamming count (medium_bounds).  K1's int8 route
+    and K2 must launch in this step: the counters are reset before it and
+    read after."""
+    import http.client
+
+    from syzgydb_tpu_torch.server import embedding
+
+    folder = tempfile.mkdtemp(prefix="syzgy_embed_scale_")
+    docs, topics = corpus_docs(EMB_DOCS, 2024)
+    queries = corpus_docs(EMB_CLIENTS * EMB_PER_CLIENT + 16, 4048)[0]
+    out = {"docs": EMB_DOCS, "post": EMB_POST}
+    reset_counters()
+    es = EmbedServer(folder, dev)
+    try:
+        seam = embedding.get_embed_text()
+        spent, searched = [], {}
+
+        def timed(texts, use_cache):
+            t0 = time.perf_counter()
+            vecs = seam(texts, use_cache)
+            if use_cache:  # a search: its text, embedded alone
+                searched[texts[0]] = vecs[0]
+            else:
+                spent.append(time.perf_counter() - t0)
+            return vecs
+
+        embedding.set_embed_text(timed)
+        base = "/api/v1/collections"
+        http_call(es.port, "POST", base, {
+            "name": "text", "vector_size": DIMS, "quantization": 8,
+            "distance_function": "cosine"}, 201)
+        conn = http.client.HTTPConnection("127.0.0.1", es.port, timeout=600)
+        t0 = time.perf_counter()
+        for a in range(0, EMB_DOCS, EMB_POST):
+            conn.request("POST", f"{base}/text/records", body=json.dumps([
+                {"id": i, "text": docs[i], "metadata": {"topic": topics[i]}}
+                for i in range(a, min(a + EMB_POST, EMB_DOCS))]),
+                headers={"Content-Type": "application/json"})
+            resp = conn.getresponse()
+            data = resp.read()
+            if resp.status != 201:
+                raise AssertionError(f"embedder insert: HTTP {resp.status}: "
+                                     f"{data[:300]!r}")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        conn.close()
+        out["insert"] = {"wall_s": wall, "docs_per_s": EMB_DOCS / wall,
+                         "embed_s": sum(spent), "posts": len(spent)}
+        log(f"embedder insert: {out['insert']}")
+        coll = es.srv.collections["text"]
+        path = f"{base}/text/search"
+
+        def bodies(a, n, **kw):
+            return [[{"text": queries[a + c * n + r], "k": K, **kw}
+                     for r in range(n)] for c in range(EMB_CLIENTS)]
+
+        http_clients(es.port, bodies(0, 2, precision="high"), path)
+        res, lat, qwall, steady = http_clients(
+            es.port, bodies(0, EMB_PER_CLIENT, precision="high"), path)
+        res = [x for c in res for x in c]
+        torch.cuda.synchronize()
+        after_high = counters()
+        n_high = EMB_CLIENTS * EMB_PER_CLIENT
+        med_texts = queries[n_high:n_high + 16]
+        med, med_lat, _, _ = http_clients(
+            es.port, [[{"text": t, "k": K} for t in med_texts]], path)
+        med = med[0]
+        torch.cuda.synchronize()
+        launches = counters()
+        out["launches_in_medium"] = {k: launches[k] - after_high[k]
+                                     for k in launches}
+        # the query vectors the handlers searched with (each text embedded
+        # alone), and the same texts embedded alone again here
+        qv = np.array([searched[t] for t in queries[:n_high]], np.float32)
+        mqv = np.array([searched[t] for t in med_texts], np.float32)
+        again = np.array([seam([t], True)[0] for t in queries[:n_high]] +
+                         [seam([t], True)[0] for t in med_texts], np.float32)
+        out["query_vectors_recomputed_max_abs_diff"] = float(
+            np.abs(again - np.concatenate([qv, mqv])).max())
+        oracle = oracle_vectors(coll, dev)
+        truth = oracle_top10(oracle, qv)
+        rec = serve_recall(res, truth)
+        med_rec = serve_recall(med, oracle_top10(oracle, mqv))
+        vecs64 = np.zeros((EMB_DOCS, DIMS))
+        vecs64[oracle[2].cpu().numpy()] = oracle[0].cpu().numpy()
+        del oracle
+        outside = 0
+        for x, (sure, tied, top_sure, top_all) in zip(
+                med, medium_bounds(coll, mqv, vecs64)):
+            got = {r["id"] for r in x["results"]}
+            outside += not (got <= tied and top_all & sure <= got and
+                            got & sure <= top_sure)
+        emb_ms = [x["embedding_time"] for x in res]
+        out["search_high"] = {
+            "requests": n_high, "clients": EMB_CLIENTS, "wall_s": qwall,
+            "qps": n_high / qwall, "steady_qps": steady,
+            "p50_ms": float(np.percentile(lat, 50)),
+            "p99_ms": float(np.percentile(lat, 99)),
+            "mean_ms": float(np.mean(lat)),
+            "mean_embedding_time_ms": float(np.mean(emb_ms)),
+            "mean_search_time_ms": float(np.mean([x["search_time"]
+                                                  for x in res])),
+            "mean_queue_wait_time_ms": float(np.mean(
+                [x["queue_wait_time"] for x in res])),
+            "recall_at_10": rec}
+        out["search_medium_one_client"] = {
+            "requests": len(med), "p50_ms": float(np.percentile(med_lat, 50)),
+            "mean_embedding_time_ms": float(np.mean(
+                [x["embedding_time"] for x in med])),
+            "recall_at_10": med_rec, "outside_tie_bounds": outside}
+        out["launches"] = launches
+    finally:
+        es.close()
+        shutil.rmtree(folder, ignore_errors=True)
+    log(f"embedder at scale: {out}")
+    if out["query_vectors_recomputed_max_abs_diff"] > tol:
+        raise AssertionError(f"embedder: a query embedded again differs from "
+                             f"the handler's by more than {tol}")
+    if rec < 1.0:
+        raise AssertionError(f"embedder text search high: recall {rec}")
+    if outside:
+        raise AssertionError(f"embedder text search medium: {outside} "
+                             f"answers outside the sketch budget's ties")
+    if min(after_high["segmin_i8"],
+           out["launches_in_medium"]["hamming"]) == 0:
+        raise AssertionError(f"embedder path: K1 (int8) at high or K2 at "
+                             f"medium not launched ({launches}, "
+                             f"{out['launches_in_medium']})")
+    return out
+
+
+def embedder_phase(dev, report: dict) -> None:
+    """Phase 5: the on-device embedder on the card (see embed_full_width,
+    embed_gate, embed_rest_flow, embed_at_scale, embed_times)."""
+    t0 = time.perf_counter()
+    out = {"full_width": embed_full_width(dev), "gate": embed_gate(dev),
+           "rest_flow": embed_rest_flow(dev)}
+    out["scale"] = embed_at_scale(dev, out["full_width"]["preln"]["tolerance"])
+    out["times"] = embed_times(dev)
+    out["phase_s"] = time.perf_counter() - t0
+    report["embedder"] = out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: torch.cuda.is_available() is False; this script "
@@ -2082,6 +2470,7 @@ def main() -> int:
     report["kernel_times"] = times
     coll.close()
     shutil.rmtree(tmp, ignore_errors=True)
+    embedder_phase(dev, report)
     report["total_s"] = time.perf_counter() - t_start
     print(json.dumps(report), flush=True)
 

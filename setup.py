@@ -8,7 +8,9 @@ setup(
     packages=find_packages(exclude=("tests",)),
     package_data={"syzgydb_tpu.native": ["libspanlog_core.so"],
                   # the port builds its CUDA kernels from these at first use
-                  "syzgydb_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"]},
+                  "syzgydb_tpu_torch": ["csrc/*.cu", "csrc/*.cuh"],
+                  # the embedder's shipped checkpoint (DEFAULT_CHECKPOINT)
+                  "syzgydb_tpu_torch.models": ["checkpoints/*.ckpt"]},
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "flax"],
     entry_points={

@@ -27,9 +27,9 @@ DEFAULTS = {
     "data_folder": "./data",
     "html_root": "./html",
     "random_seed": 0,
-    # "ollama" = remote HTTP embedding (reference behavior).  "device" (an
-    # on-device text embedder) is not ported yet: make_server raises
-    # NotImplementedError for it (ROADMAP.md Queue 1, item 3).
+    # "ollama" = remote HTTP embedding (reference behavior); "device" =
+    # the on-device text embedder (models/embedder.py) on the server's
+    # device, from embedder_checkpoint when set, else random weights.
     "embedder": "ollama",
     "embedder_checkpoint": "",
     # "auto" = shard every collection over all visible devices; "off" =

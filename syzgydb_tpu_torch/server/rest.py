@@ -616,15 +616,31 @@ def _server_mesh() -> None:
         "(ROADMAP.md Queue 1, item 4: Multi-GPU)")
 
 
+def _device_embedder(device):
+    """The TextEmbedder of embedder=device, on the server's device."""
+    from ..models.embedder import TextEmbedder
+    ckpt = config.global_config.embedder_checkpoint
+    if ckpt:
+        # self-describing checkpoint: architecture comes from its header
+        emb = TextEmbedder.from_checkpoint(ckpt, device=device)
+        log.info("using on-device text embedder (checkpoint %s)", ckpt)
+        return emb
+    log.warning(
+        "on-device embedder running RANDOM weights (experimental): "
+        "embeddings are not semantically meaningful -- set "
+        "embedder_checkpoint to a trained flax msgpack checkpoint")
+    return TextEmbedder(device=device)
+
+
 def make_server(data_folder: Optional[str] = None,
                 load_existing: bool = True, device=None) -> Server:
     srv = Server(data_folder, device=device)
     _server_mesh()
     if config.global_config.embedder == "device":
-        # never falls back to the Ollama client in its place
-        raise NotImplementedError(
-            "embedder=device is not ported yet (ROADMAP.md Queue 1, item 3: "
-            "Embedder)")
+        # on-device embedding instead of the Ollama HTTP service; an
+        # embedder that fails to build raises here, before the seam changes
+        embedding.set_embed_text(
+            _device_embedder(srv.device).as_embed_text_fn())
     if load_existing:
         for path in glob.glob(os.path.join(srv.data_folder, "*.dat")):
             name = srv.file_to_collection_name(path)

@@ -567,35 +567,6 @@ def _chip_smoke():
     return mod
 
 
-def _medium_bounds(coll, qvecs, vecs64):
-    """What any medium answer of `coll` may hold, per query: medium reranks
-    the `budget` rows of least Hamming count, so every candidate set holds
-    the rows below the budget's count (`sure`) and some of those at it
-    (`tied`); the CPU and CUDA torch.topk pick different tied rows.  Counts
-    by the plain K2 on the host; `vecs64[i]` is record i's vector.  -> per
-    query (sure, sure + tied, fp64 top-10 of sure, fp64 top-10 of sure +
-    tied), as sets of ids."""
-    state = coll._device_state()
-    budget = min(max(coll.options.search_budget, 40), coll.columns.capacity)
-    valid = state["valid"].cpu()
-    qcode = torch.from_numpy(coll.index.encode_np(qvecs).view(np.int32))
-    ham = hamming_scan.hamming_scores_plain(qcode, state["hashes"].cpu(),
-                                            valid)
-    cut = torch.kthvalue(ham, budget, dim=1).values[:, None]
-    ids = np.where(valid.numpy(), coll.columns.ids[:len(valid)], 0)
-    v = vecs64[ids] / np.linalg.norm(vecs64[ids], axis=1, keepdims=True)
-    q = qvecs.astype(np.float64)
-    dist = -(q / np.linalg.norm(q, axis=1, keepdims=True)) @ v.T
-
-    def top10(d, keep):
-        return set(ids[np.argsort(np.where(keep, d, np.inf),
-                                  kind="stable")[:10]].tolist())
-
-    return [(set(ids[s].tolist()), set(ids[m].tolist()), top10(d, s),
-             top10(d, m)) for d, s, m in
-            zip(dist, (ham < cut).numpy(), (ham <= cut).numpy())]
-
-
 @pytest.mark.parametrize("rows", ["clustered", "gaussian"])
 def test_cuda_rest_flow_matches_cpu(cuda, tmp_path, monkeypatch, rows):
     """The default-quantization REST flow of chip_smoke.py (create,
@@ -608,11 +579,12 @@ def test_cuda_rest_flow_matches_cpu(cuda, tmp_path, monkeypatch, rows):
     Hamming count, which the CPU and CUDA torch.topk break differently:
     each device's answer holds the fp64 top-10 of all candidates wherever
     that lies below the tie, lies in the top-10 of the rows below it
-    otherwise, and never leaves the tied rows (_medium_bounds).  On 256
-    clusters each query's top-10 lies in its own cluster, well inside the
-    2048-row budget, and the two devices' medium id sets also overlap by
-    98%; on Gaussian rows the ties reach the top-10 (PERF.md).  Both
-    servers run with random_seed 7, so they draw the same sketch planes."""
+    otherwise, and never leaves the tied rows (chip_smoke.medium_bounds).
+    On 256 clusters each query's top-10 lies in its own cluster, well
+    inside the 2048-row budget, and the two devices' medium id sets also
+    overlap by 98%; on Gaussian rows the ties reach the top-10 (PERF.md).
+    Both servers run with random_seed 7, so they draw the same sketch
+    planes."""
     smoke = _chip_smoke()
     rng = np.random.default_rng(21)
     if rows == "clustered":
@@ -643,8 +615,8 @@ def test_cuda_rest_flow_matches_cpu(cuda, tmp_path, monkeypatch, rows):
                     "vector": q.tolist(), "k": 10, "precision": "high"}))
                 high.append([r["id"] for r in res[-1]["results"]])
             for q, (sure, tied, top_sure, top_all) in zip(
-                    queries[:8], _medium_bounds(srv.collections["flow"],
-                                                queries[:8], vecs64)):
+                    queries[:8], smoke.medium_bounds(
+                        srv.collections["flow"], queries[:8], vecs64)):
                 res.append(smoke.http_call(port, "POST", path, {
                     "vector": q.tolist(), "k": 10}))
                 got = {r["id"] for r in res[-1]["results"]}
@@ -667,3 +639,14 @@ def test_cuda_rest_flow_matches_cpu(cuda, tmp_path, monkeypatch, rows):
     print(f"medium id sets, {rows} rows: {common} common of {union}")
     if rows == "clustered":
         assert common >= 0.98 * union, (common, union)
+
+
+def test_cuda_embedder_matches_cpu(cuda):
+    """The full-width text encoder in both archs, bf16 on the card, within
+    twice the CPU's own bf16 error of the CPU's f32 run on the same seeded
+    weights and texts (chip_smoke.embed_full_width, which raises past
+    that tolerance)."""
+    out = _chip_smoke().embed_full_width(cuda)
+    for arch in ("preln", "bert"):
+        assert out[arch]["max_abs_err"] <= out[arch]["tolerance"]
+        assert out[arch]["min_cos"] > 0.999

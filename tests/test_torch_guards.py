@@ -1,6 +1,7 @@
 """Guards of the port's boundaries: it never imports JAX or the JAX
-package, it never carries on on the CPU when CUDA was asked for, and its
-chip smoke script refuses to run without a card."""
+package (nor msgpack, transformers or safetensors), it never carries on
+on the CPU when CUDA was asked for, and its chip smoke script refuses to
+run without a card."""
 
 import ast
 import json
@@ -26,9 +27,14 @@ def _port_files():
     return out
 
 
+# the JAX package and its stack; msgpack, transformers and safetensors are
+# absent where the card is, and the embedder's checkpoint readers stand alone
+FORBIDDEN = ("jax", "jaxlib", "flax", "syzgydb_tpu", "msgpack",
+             "transformers", "safetensors")
+
+
 def _forbidden(name: str) -> bool:
-    top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax", "syzgydb_tpu")
+    return name.split(".")[0] in FORBIDDEN
 
 
 @pytest.mark.parametrize("path", _port_files(),
@@ -55,7 +61,7 @@ def test_importing_the_port_loads_no_jax():
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
-        "('jax', 'jaxlib', 'flax', 'syzgydb_tpu')]\n"
+        f"{FORBIDDEN!r}]\n"
         "print(bad)\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONSTARTUP"}
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,

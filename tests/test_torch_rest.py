@@ -3,8 +3,10 @@ the JAX package's, on the CPU.
 
 The flows of tests/test_rest.py run against either package's server (the
 `pkg` fixture is parametrized over "jax" and "torch"); the port replaces
-the JAX package's use_mesh test with its refusals of use_mesh="auto" on
-several CUDA devices and of embedder="device".  A scripted differential
+the JAX package's use_mesh test with its refusal of use_mesh="auto" on
+several CUDA devices.  The REST text-search flows of tests/test_embedder.py
+(embedder="device" with the shipped checkpoint and with an HF checkpoint
+directory) run on both servers too.  A scripted differential
 sequence then drives both servers on the same seeded documents, at
 quantization 8 and 64, cosine and euclidean, with HOST_SCAN_MAX_ELEMS as it
 stands and patched to 0 in both packages (the device branches: XLA on the
@@ -647,13 +649,110 @@ def test_use_mesh_auto_on_two_devices_raises(tmp_path, monkeypatch):
         t.make_server(tmp_path)
 
 
-def test_embedder_device_raises_without_falling_back(tmp_path, monkeypatch):
+def _device_embedder_server(pkg, tmp_path, monkeypatch, ckpt):
+    """pkg's server with embedder=device and `ckpt`; the embed_text seam
+    comes back at teardown."""
+    monkeypatch.setattr(pkg.config, "global_config", pkg.config.Config(
+        data_folder=str(tmp_path), html_root="", embedder="device",
+        embedder_checkpoint=ckpt))
+    monkeypatch.setattr(pkg.embedding, "embed_text",
+                        pkg.embedding.embed_text)
+    srv = pkg.make_server(tmp_path)
+    httpd, base = start(srv, pkg.rest)
+    return srv, httpd, base
+
+
+def test_rest_text_search_with_trained_device_embedder(pkg, tmp_path,
+                                                        monkeypatch):
+    """tests/test_embedder.py's REST flow: embedder=device with the shipped
+    checkpoint; text inserts embed on the server's device, and a held-out
+    text query retrieves its same-topic document top-1."""
+    if pkg.name == "jax":
+        from syzgydb_tpu.models import train_synthetic as ts
+    else:
+        from syzgydb_tpu_torch.models import train_synthetic as ts
+    srv, httpd, base = _device_embedder_server(pkg, tmp_path, monkeypatch,
+                                               ts.DEFAULT_CHECKPOINT)
+    try:
+        assert make_coll(base, "txt", ts.training_config().hidden,
+                         16)[0] == 201
+        topics, filler = ts.make_vocab()
+        rng = np.random.default_rng(31)
+        doc_topics = list(range(0, 36, 3))  # 12 docs, distinct topics
+        recs = [{"id": i, "text": ts.sample_doc(rng, topics[t], filler),
+                 "metadata": {"topic": t}}
+                for i, t in enumerate(doc_topics)]
+        assert req(base, "POST", "/api/v1/collections/txt/records",
+                   recs)[0] == 201
+        hits = 0
+        for t in doc_topics:
+            q = ts.sample_doc(rng, topics[t], filler)
+            code, out = req(base, "POST", "/api/v1/collections/txt/search",
+                            {"text": q, "k": 1})
+            assert code == 200
+            hits += int(out["results"][0]["metadata"]["topic"] == t)
+        assert hits >= 11, hits
+    finally:
+        httpd.shutdown()
+        close_all(srv)
+
+
+def test_rest_text_search_with_hf_checkpoint(pkg, tmp_path, monkeypatch):
+    """tests/test_embedder.py's REST flow through an HF-format checkpoint
+    directory: an indexed text searched by text comes back top-1."""
+    transformers = pytest.importorskip("transformers")
+    import torch
+
+    cfg = transformers.BertConfig(
+        vocab_size=64, hidden_size=32, num_hidden_layers=2,
+        num_attention_heads=2, intermediate_size=64,
+        max_position_embeddings=64)
+    torch.manual_seed(0)
+    d = tmp_path / "minilm"
+    transformers.BertModel(cfg).eval().save_pretrained(str(d))
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "the", "cat", "sat", "on",
+             "a", "mat", "hello", "world", "quick", "brown", "fox"]
+    (d / "vocab.txt").write_text("\n".join(words) + "\n")
+    srv, httpd, base = _device_embedder_server(pkg, tmp_path, monkeypatch,
+                                               str(d))
+    try:
+        assert make_coll(base, "hf", 32, 16)[0] == 201
+        texts = ["the cat sat on a mat", "hello world", "a quick brown fox"]
+        assert req(base, "POST", "/api/v1/collections/hf/records",
+                   [{"id": i, "text": t, "metadata": {"i": str(i)}}
+                    for i, t in enumerate(texts)])[0] == 201
+        for i, t in enumerate(texts):
+            code, out = req(base, "POST", "/api/v1/collections/hf/search",
+                            {"text": t, "k": 1})
+            assert code == 200 and out["results"][0]["id"] == i, out
+            assert out["results"][0]["distance"] < 1e-3
+    finally:
+        httpd.shutdown()
+        close_all(srv)
+
+
+@pytest.mark.parametrize("ckpt", ["missing", "wrong_tree"])
+def test_embedder_that_fails_to_build_raises(tmp_path, monkeypatch, ckpt):
+    """embedder=device with a checkpoint that does not load: make_server
+    raises and the embed_text seam stays the Ollama client's."""
+    from syzgydb_tpu_torch.models import ckpt_msgpack
+
     t = Pkg("torch")
+    path = tmp_path / "emb.ckpt"
+    if ckpt == "wrong_tree":
+        hdr = json.dumps({"hidden": 64, "heads": 4, "layers": 1,
+                          "dtype": "float32"}).encode()
+        path.write_bytes(b"SYZE" + len(hdr).to_bytes(4, "little") + hdr +
+                         ckpt_msgpack.dumps({"params": {}}))
     monkeypatch.setattr(t.config.global_config, "embedder", "device")
+    monkeypatch.setattr(t.config.global_config, "embedder_checkpoint",
+                        str(path))
     before = t.embedding.embed_text
-    with pytest.raises(NotImplementedError, match="Queue 1, item 3"):
+    err = FileNotFoundError if ckpt == "missing" else ValueError
+    with pytest.raises(err):
         t.make_server(tmp_path)
     assert t.embedding.embed_text is before
+    assert before is t.embedding.embed_text_ollama
 
 
 def test_make_server_without_device_raises_before_loading(tmp_path,
