@@ -89,6 +89,19 @@ JAX or of the JAX package.  Phases, each of which fails the run:
      bit-identical; then K1 at Q = 1024, 64 and 16 and K4 at Q = 128 and
      16 timed beside fp32 (TF32 off) and bf16 torch.matmul, and K1 on
      64-bit codes at Q = 16, 32, 64 on every tile that holds them.
+  4b. tools (syzgydb_tpu_torch/tools/), their launch counters reset
+     before the phase and read after it: the 1M collection exported
+     compact (export_json, base64 of the packed bytes) and imported on
+     the card (import_json): high batch 1024 with equal ids, bit-equal
+     f32 distances and every flag 1, medium batch 8 (K2) equal, equal
+     device sketches and counts, and dump_index of the copy's file finding
+     every record with a good CRC; a 32,768 x 384 quantization-64
+     collection exported as float text and imported (high batch 16, fp32
+     K1, equal likewise); a SyzgyDB Go .dat of the first 131,072 rows
+     (build_ref_file) migrated with import_ref_file, each top-10 the
+     source's under "i < 131072".  Export, import and migration rows/s and
+     MB/s, and the copies' first-batch ms, go on a {"tools": {...}} line
+     with the card's name and power limit.
   5. embedder (embedder: device): (1) the full-width MiniLM-L6-shaped
      encoder (vocab 30522, hidden 384, 6 layers, 12 heads, MLP 1536,
      max_len 128) in both archs with seeded random weights, bf16 on the
@@ -627,6 +640,29 @@ def reset_counters() -> None:
     hamming_scan.launches = hamming_scan.u8_launches = 0
 
 
+def proven_rows(coll, tq, bits: int):
+    """K1's completeness flags on the collection's state, from its margin
+    hint up the escalation ladder until every flag is 1 (the loop
+    Collection runs) -> (ids per query, the first rung's ok share, the
+    margin that proved every query)."""
+    from syzgydb_tpu_torch.ops import scan
+
+    state = coll._device_state()
+    margin, first = coll._seg_margin_hint, None
+    while True:
+        _, r, ok = scan.fused_scan_topk(
+            tq, state["codes"], state["norms"], state["valid"], bits=bits,
+            metric=coll.metric, k=K, tie_margin=margin, with_ties=True)
+        frac = float(ok.float().mean())
+        first = frac if first is None else first
+        if frac == 1.0:
+            break
+        margin = coll._escalate_margin(margin)
+    ids = coll.columns.ids
+    return [[int(ids[x]) for x in row] for row in r.cpu().numpy()], first, \
+        margin
+
+
 def main_path(dev, report: dict):
     import syzgydb_tpu_torch as tdb
     from syzgydb_tpu_torch.core import capacity
@@ -849,18 +885,7 @@ def main_path(dev, report: dict):
     _, _, ok6 = scan.fused_scan_topk(
         tq, state["codes"], state["norms"], state["valid"], bits=8,
         metric="cosine", k=K, with_ties=True)
-    margin = coll._seg_margin_hint
-    first_ok = None
-    while True:
-        d, r, ok = scan.fused_scan_topk(
-            tq, state["codes"], state["norms"], state["valid"], bits=8,
-            metric="cosine", k=K, tie_margin=margin, with_ties=True)
-        frac = float(ok.float().mean())
-        first_ok = frac if first_ok is None else first_ok
-        if frac == 1.0:
-            break
-        margin = coll._escalate_margin(margin)
-    got = [[int(ids[x]) for x in row] for row in r.cpu().numpy()]
+    got, first_ok, margin = proven_rows(coll, tq, 8)
     if got != want:
         raise AssertionError("proven rows differ from high's results")
     report["flags"] = {"default_margin_ok_frac": float(ok6.float().mean()),
@@ -1576,19 +1601,8 @@ def e2e_64bit(rows: np.ndarray, queries: np.ndarray, dev,
         # the proven rows must be the rows high returned
         state = coll._device_state()
         tq = torch.from_numpy(queries[:64]).to(dev)
-        margin, first = coll._seg_margin_hint, None
-        while True:
-            _, r, ok = scan.fused_scan_topk(
-                tq, state["codes"], state["norms"], state["valid"], bits=64,
-                metric="cosine", k=K, tie_margin=margin, with_ties=True)
-            frac = float(ok.float().mean())
-            first = frac if first is None else first
-            if frac == 1.0:
-                break
-            margin = coll._escalate_margin(margin)
-        ids = coll.columns.ids
-        if [[int(ids[x]) for x in row] for row in r.cpu().numpy()] != \
-                [[x.id for x in res.results] for res in res64]:
+        rows, first, margin = proven_rows(coll, tq, 64)
+        if rows != [[x.id for x in res.results] for res in res64]:
             raise AssertionError("64-bit phase: proven rows differ from "
                                  "high's results")
         out["flags"] = {"first_rung_ok_frac": first, "all_ok": True,
@@ -2069,6 +2083,220 @@ def kernel_times(coll, state, tq, dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 4b: the tools (export, import, Go .dat migration) on the card
+# ---------------------------------------------------------------------------
+
+# the float-text round trip's rows, cut from the 64-bit phase's 262,144:
+# text export writes ~20 characters a float (12.6 M floats: ~250 MB)
+TEXT_ROWS = 1 << 15
+# the Go .dat migration's rows: the 1M collection's first ids
+REF_ROWS = 1 << 17
+
+
+class DumpTally:
+    """A dump_index sink that counts record lines instead of keeping the
+    text: records, records whose CRC holds, tombstones."""
+
+    def __init__(self):
+        self.records = self.crc_ok = self.tombstones = 0
+
+    def write(self, line: str) -> None:
+        if line.startswith("  ["):
+            self.records += 1
+            self.crc_ok += line.rstrip().endswith("crc=ok")
+            self.tombstones += " TOMBSTONE " in line
+
+
+def same_results(got, want, what: str) -> None:
+    """Equal ids in equal order and bit-equal f32 distances."""
+    for g, w in zip(got, want, strict=True):
+        if [(x.id, x.distance) for x in g.results] != \
+                [(x.id, x.distance) for x in w.results]:
+            raise AssertionError(f"tools {what}: the copy's results differ "
+                                 f"from the source's")
+
+
+def round_trip(coll, folder: str, name: str, compact: bool, dev):
+    """export_json to a file, import_json of it into a new collection on
+    `dev`, the file removed -> (copy, times and sizes)."""
+    from syzgydb_tpu_torch.tools import dump
+
+    path = os.path.join(folder, f"{name}.json")
+    n = coll.get_document_count()
+    t0 = time.perf_counter()
+    with open(path, "w") as f:
+        dump.export_json(coll, f, compact=compact)
+    export_s = time.perf_counter() - t0
+    nbytes = os.path.getsize(path)
+    t0 = time.perf_counter()
+    with open(path) as f:
+        copy = dump.import_json(os.path.join(folder, f"{name}.dat"), f,
+                                device=dev)
+    import_s = time.perf_counter() - t0
+    os.remove(path)
+    return copy, {
+        "rows": n, "export_bytes": nbytes, "export_s": export_s,
+        "export_rows_per_s": n / export_s,
+        "export_mb_per_s": nbytes / export_s / 1e6, "import_s": import_s,
+        "import_rows_per_s": n / import_s,
+        "import_mb_per_s": nbytes / import_s / 1e6}
+
+
+def tools_phase(coll, rows_text: np.ndarray, queries: np.ndarray, dev,
+                card: str, report: dict) -> None:
+    """Phase 4b: the tools on the card, their launch counters reset before
+    and read after.  (1) The 1M collection exported compact and imported
+    into a new collection on the card: high batch 1024 with equal ids,
+    bit-equal distances and every flag 1, medium batch 8 (K2) equal, equal
+    device sketches and counts, and dump_index of the copy's file finding
+    every record with a good CRC.  (2) A 32,768 x 384 quantization-64
+    collection from the corpus's first rows exported as float text and
+    imported: high batch 16 (fp32 K1 at tile 16) equal likewise.  (3) A
+    Go .dat of the 1M collection's first 131,072 rows (build_ref_file,
+    8-bit, FREE gaps) migrated with import_ref_file: each query's top-10
+    equals the source's under "i < 131072", ids as sets (rows tied at the
+    10th distance aside) and sorted distances bit-equal.  Every temp file
+    is removed."""
+    import syzgydb_tpu_torch as tdb
+    from syzgydb_tpu_torch.tools import dump, refimport
+
+    def args(qs, precision, **kw):
+        return [tdb.SearchArgs(vector=q, k=K, precision=precision, **kw)
+                for q in qs]
+
+    tmp = tempfile.mkdtemp(prefix="syzgy_tools_")
+    out = {"card": card, "reduced": {
+        "text_round_trip_rows": f"{TEXT_ROWS} (from 262,144: float text "
+                                f"writes ~20 characters a float)",
+        "ref_rows": f"{REF_ROWS} (the 1M collection's first ids)"}}
+    copies = []
+    t_phase = time.perf_counter()
+    reset_counters()
+    try:
+        # (1) the compact round trip of the 1M collection
+        copy, c1 = round_trip(coll, tmp, "compact", True, dev)
+        out["compact"] = c1
+        copies.append(copy)
+        tq = torch.from_numpy(queries).to(dev)
+        # the margin hint is derived state: start the copy where the source
+        # stands, so both rerank the same candidates
+        copy._seg_margin_hint = coll._seg_margin_hint
+        t0 = time.perf_counter()
+        got = copy.search_many(args(queries, "high"))
+        c1["first_batch1024_ms"] = (time.perf_counter() - t0) * 1000.0
+        same_results(got, coll.search_many(args(queries, "high")),
+                     "compact high batch 1024")
+        rows, c1["first_rung_ok_frac"], _ = proven_rows(copy, tq, 8)
+        if rows != [[x.id for x in r.results] for r in got]:
+            raise AssertionError("tools compact: proven rows differ from "
+                                 "the copy's high results")
+        same_results(copy.search_many(args(queries[:8], "medium")),
+                     coll.search_many(args(queries[:8], "medium")),
+                     "compact medium batch 8")
+        if not torch.equal(copy._device_state()["hashes"],
+                           coll._device_state()["hashes"]):
+            raise AssertionError("tools compact: the copy's sketches differ")
+        if copy.get_document_count() != coll.get_document_count():
+            raise AssertionError("tools compact: document counts differ")
+        tally = DumpTally()
+        t0 = time.perf_counter()
+        dump.dump_index(copy.options.name, tally)
+        c1["dump_s"] = time.perf_counter() - t0
+        c1["dump_records"] = tally.records
+        if (tally.records, tally.crc_ok, tally.tombstones) != \
+                (c1["rows"] + 1, c1["rows"] + 1, 0):
+            raise AssertionError(f"tools dump_index: {vars(tally)} for "
+                                 f"{c1['rows']} rows and the options record")
+
+        # (2) the float-text round trip at the server's default width
+        src = tdb.Collection(tdb.CollectionOptions(
+            name=os.path.join(tmp, "text_src.dat"),
+            distance_method=tdb.COSINE, dimension_count=DIMS,
+            quantization=64, index_seed=4242), device=dev)
+        copies.append(src)
+        src.add_documents(list(range(len(rows_text))), rows_text,
+                          [b'{"i":%d}' % i for i in range(len(rows_text))])
+        copy, c2 = round_trip(src, tmp, "text", False, dev)
+        out["text"] = c2
+        copies.append(copy)
+        copy._seg_margin_hint = src._seg_margin_hint
+        t0 = time.perf_counter()
+        got = copy.search_many(args(queries[:16], "high"))
+        c2["first_batch16_ms"] = (time.perf_counter() - t0) * 1000.0
+        same_results(got, src.search_many(args(queries[:16], "high")),
+                     "text high batch 16")
+        rows, c2["first_rung_ok_frac"], _ = proven_rows(copy, tq[:16], 64)
+        if rows != [[x.id for x in r.results] for r in got]:
+            raise AssertionError("tools text: proven rows differ from the "
+                                 "copy's high results")
+
+        # (3) the Go .dat migration of the 1M collection's first rows
+        t0 = time.perf_counter()
+        records = []
+        for ids, vecs, metas in coll.iter_export_rows():
+            records += [(i, v, m) for i, v, m in zip(ids, vecs, metas)
+                        if i < REF_ROWS]
+            if ids[-1] >= REF_ROWS - 1:
+                break
+        blob = refimport.build_ref_file(
+            {"name": "smoke.dat", "distance_method": tdb.COSINE,
+             "dimension_count": DIMS, "quantization": 8}, records, 8,
+            free_gaps=True)
+        del records
+        dat = os.path.join(tmp, "ref.dat")
+        with open(dat, "wb") as f:
+            f.write(blob)
+        c3 = out["ref"] = {"rows": REF_ROWS, "dat_bytes": len(blob),
+                           "write_s": time.perf_counter() - t0}
+        del blob
+        t0 = time.perf_counter()
+        copy = refimport.import_ref_file(dat, os.path.join(tmp, "ref_n.dat"),
+                                         device=dev)
+        c3["import_s"] = time.perf_counter() - t0
+        c3["import_rows_per_s"] = REF_ROWS / c3["import_s"]
+        copies.append(copy)
+        os.remove(dat)
+        if copy.get_document_count() != REF_ROWS:
+            raise AssertionError(f"tools ref: {copy.get_document_count()} "
+                                 f"records imported")
+        got = copy.search_many(args(queries[:64], "high"))
+        want = coll.search_many(args(queries[:64], "high",
+                                     filter_query=f"i < {REF_ROWS}"))
+        strict = 0
+        for g, w in zip(got, want, strict=True):
+            gd = sorted(x.distance for x in g.results)
+            if gd != sorted(x.distance for x in w.results):
+                raise AssertionError("tools ref: sorted distances differ")
+            # rows tied at the 10th distance may be either
+            cut = gd[-1]
+            if {x.id for x in g.results if x.distance < cut} != \
+                    {x.id for x in w.results if x.distance < cut}:
+                raise AssertionError("tools ref: top-10 ids differ")
+            strict += {x.id for x in g.results} != \
+                {x.id for x in w.results}
+        c3["queries_with_tied_sets"] = strict
+    finally:
+        for c in copies:
+            c.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.synchronize()
+    c = counters()
+    out["launches"] = {"segmin_i8": c["segmin_i8"],
+                       "segmin_fp32": c["segmin"] - c["segmin_i8"],
+                       "hamming": c["hamming"], "hamming_u8": c["hamming_u8"],
+                       "surface": c["surface"],
+                       "segmin_free_seg": c["segmin_free_seg"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    if min(out["launches"][k] for k in ("segmin_i8", "segmin_fp32",
+                                        "hamming")) == 0:
+        raise AssertionError(f"tools phase: K1 (int8), fp32 K1 or K2 not "
+                             f"launched ({out['launches']})")
+    log(f"tools: {out}")
+    print(json.dumps({"tools": out}), flush=True)
+    report["tools"] = out
+
+
+# ---------------------------------------------------------------------------
 # phase 5: the on-device text embedder (embedder: device)
 # ---------------------------------------------------------------------------
 
@@ -2464,10 +2692,13 @@ def main() -> int:
     coll, tmp, state, tq, launches, rows64 = main_path(dev, report)
     serving(coll, tmp, tq.cpu().numpy(), rows64[:FLOW_ROWS], dev, report)
     e64 = e2e_64bit(rows64, tq.cpu().numpy(), dev, report)
+    rows_text = rows64[:TEXT_ROWS].copy()
     del rows64
     times = kernel_times(coll, state, tq, dev)
     times["fp32_widths"] = fp32_width_times(tq, dev)
     report["kernel_times"] = times
+    tools_phase(coll, rows_text, tq.cpu().numpy(), dev, card, report)
+    del rows_text
     coll.close()
     shutil.rmtree(tmp, ignore_errors=True)
     embedder_phase(dev, report)

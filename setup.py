@@ -14,6 +14,7 @@ setup(
     python_requires=">=3.10",
     install_requires=["jax", "numpy", "flax"],
     entry_points={
-        "console_scripts": ["syzgy-tpu=syzgydb_tpu.tools.cli:main"],
+        "console_scripts": ["syzgy-tpu=syzgydb_tpu.tools.cli:main",
+                            "syzgy-torch=syzgydb_tpu_torch.tools.cli:main"],
     },
 )

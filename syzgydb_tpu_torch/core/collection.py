@@ -280,7 +280,10 @@ class Collection:
         # start there instead of re-climbing the ladder (see _note_margin)
         self._seg_margin_hint: Optional[int] = None
         self._hint_fail_streak = 0
+        # list-mode order cache: (columns.version, ids in decimal-string
+        # order); _list_sort_count counts its rebuilds
         self._sorted_ids_cache: tuple[int, list[int]] | None = None
+        self._list_sort_count = 0
         # query-string filter masks keyed on the query string, each tagged
         # with the mutation generation it was evaluated at
         self._filter_cache: dict = {}
@@ -1251,6 +1254,7 @@ class Collection:
         ver = self.columns.version
         cached = self._sorted_ids_cache
         if cached is None or cached[0] != ver:
+            self._list_sort_count += 1
             ids = sorted(((str(i), int(i)) for i in self.columns.doc_ids()),
                          key=lambda p: p[0])
             cached = (ver, [p[1] for p in ids])
@@ -1340,6 +1344,58 @@ class Collection:
 
     def get_all_ids(self) -> list[int]:
         return sorted(self.columns.doc_ids())
+
+    def iter_export_rows(self, chunk: int = 8192, raw: bool = False):
+        """Yield (ids, vectors, metadatas) chunks in ascending uint64 id
+        order for JSON export: one bulk span decode and a vectorized
+        dequantization, with the same values as get_document's.  With
+        raw=True the chunks hold the (m, B) uint8 storage rows instead of
+        f64 vectors.  Mixed logs fall back to per-record reads.
+
+        An out-of-core metadata collection exports at bounded memory: the
+        codes ride the streamed bulk_rows(want_metas=False) path (as the
+        reopen replay does) and each chunk's metadata is read on demand.
+        A record removed while the export runs is skipped."""
+        resident = self.columns.metadata_resident
+        bulk = self.spanlog.bulk_rows(want_metas=resident)
+        if bulk is None:  # mixed record shapes
+            for doc_id in self.get_all_ids():
+                try:
+                    streams = self.spanlog.read(str(int(doc_id)))
+                except KeyError:
+                    continue  # removed concurrently
+                if raw:
+                    row = np.frombuffer(streams[1], dtype=np.uint8)[None]
+                else:
+                    row = qz.unpack_vector(streams[1], self.dimension_count,
+                                           self.quantization)[None]
+                yield [int(doc_id)], row, [bytes(streams[0])]
+            return
+        rec_ids, metas, packed = bulk
+        if not rec_ids:
+            return
+        # uint64: doc ids span the whole unsigned range
+        ids = np.array([int(r) for r in rec_ids], dtype=np.uint64)
+        order = np.argsort(ids, kind="stable")
+        for s in range(0, len(order), chunk):
+            sel = order[s:s + chunk]
+            if resident:
+                chunk_metas = [metas[i] for i in sel.tolist()]
+            else:
+                chunk_metas, kept = [], []
+                for i in sel.tolist():
+                    try:
+                        chunk_metas.append(
+                            self.spanlog.read_stream0(rec_ids[i]))
+                        kept.append(i)
+                    except KeyError:
+                        continue  # removed concurrently
+                if not kept:
+                    continue
+                sel = np.array(kept, dtype=np.int64)
+            rows = packed[sel] if raw else qz.unpack_vectors(
+                packed[sel], self.dimension_count, self.quantization)
+            yield ids[sel].tolist(), rows, chunk_metas
 
     def compute_average_distance(self, samples: int = 100) -> float:
         with self._lock:

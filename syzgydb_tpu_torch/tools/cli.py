@@ -1,14 +1,27 @@
 """CLI entry point of the port (reference: cmd/main.go; the JAX package's
-``syzgydb_tpu/tools/cli.py``):
+``syzgydb_tpu/tools/cli.py``), installed as ``syzgy-torch``:
 
     python -m syzgydb_tpu_torch.tools.cli --serve [--platform cuda|cpu]
+    python -m syzgydb_tpu_torch.tools.cli --dump FILE
+    python -m syzgydb_tpu_torch.tools.cli --export FILE [--compact] > out.json
+    python -m syzgydb_tpu_torch.tools.cli --import out.json --output FILE \
+        [--platform cuda|cpu]
+    python -m syzgydb_tpu_torch.tools.cli --import-ref ref.dat --output FILE \
+        [--platform cuda|cpu]
 
 --serve loads the config (defaults < syzgy.conf < environment < flags) and
 runs the REST server on the device --platform names: CUDA by default, which
-raises at start-up on a host without a card, or the CPU.  --no-profiler is
-accepted for parity and changes nothing: the port starts no trace server.
---dump, --export, --import and --import-ref parse as in the JAX package and
-raise NotImplementedError: the tools are the next slice of the port.
+raises at start-up on a host without a card, or the CPU.  --import and
+--import-ref (a SyzgyDB Go .dat span file) write a new collection file,
+--output, opened on that device in the same way: each batch of records
+passes the capacity preflight before it is written.  --dump prints the
+records of a collection file from its bytes, and --export writes the
+collection as JSON to stdout (--compact: base64 of the packed storage
+bytes); both read only the file and launch no kernel, so they need no
+card.  chip_smoke.py's tools phase drives the same functions on the card
+(export_json, import_json, import_ref_file, dump_index).  --no-profiler
+is accepted for parity and changes nothing: the port starts no trace
+server.
 """
 
 from __future__ import annotations
@@ -16,9 +29,6 @@ from __future__ import annotations
 import argparse
 import logging
 import sys
-
-_TOOLS_NOT_PORTED = ("{} is not ported yet (ROADMAP.md Queue 1, item 2: "
-                     "Tools and envelope)")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -46,7 +56,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--no-profiler", action="store_true",
                    help="accepted for parity; the port starts no profiler")
     p.add_argument("--platform", choices=("cuda", "cpu"), default="cuda",
-                   help="the server's device (default cuda)")
+                   help="the device of --serve, --import and --import-ref "
+                        "(default cuda)")
     return p
 
 
@@ -56,12 +67,6 @@ def main(argv: list[str] | None = None) -> int:
                         format="%(asctime)s %(name)s %(message)s")
     args = build_parser().parse_args(argv)
 
-    for flag, val in (("--dump", args.dump), ("--export", args.export),
-                      ("--import", args.import_file),
-                      ("--import-ref", args.import_ref)):
-        if val:
-            raise NotImplementedError(_TOOLS_NOT_PORTED.format(flag))
-
     from ..server import config as cfg_mod
     flag_argv = []
     for key in cfg_mod.DEFAULTS:
@@ -70,6 +75,52 @@ def main(argv: list[str] | None = None) -> int:
             flag_argv += [f"--{key}", str(val)]
     cfg = cfg_mod.load_config(flag_argv, config_file=args.config)
     cfg_mod.configure(cfg)
+
+    if args.dump:
+        from .dump import dump_index
+        dump_index(args.dump)
+        return 0
+
+    if args.export:
+        from ..core.collection import Collection, CollectionOptions
+        from .dump import export_json
+        # the export reads the span log alone: the collection is opened on
+        # the CPU, whatever --platform says
+        coll = Collection(CollectionOptions(name=args.export,
+                                            dimension_count=1), device="cpu")
+        try:
+            export_json(coll, sys.stdout, compact=args.compact)
+        finally:
+            coll.close()
+        return 0
+
+    if args.import_file:
+        if not args.output:
+            print("--import requires --output", file=sys.stderr)
+            return 2
+        from ..core.collection import resolve_device
+        from .dump import import_json
+        # resolved before the input is read: --platform cuda on a host
+        # without a card raises here
+        device = resolve_device(args.platform)
+        with open(args.import_file) as f:
+            coll = import_json(args.output, f, device=device)
+        coll.close()
+        print(f"Imported into {args.output}")
+        return 0
+
+    if args.import_ref:
+        if not args.output:
+            print("--import-ref requires --output", file=sys.stderr)
+            return 2
+        from ..core.collection import resolve_device
+        from .refimport import import_ref_file
+        device = resolve_device(args.platform)
+        coll = import_ref_file(args.import_ref, args.output, device=device)
+        n = coll.get_document_count()
+        coll.close()
+        print(f"Imported {n} records from reference file into {args.output}")
+        return 0
 
     if args.serve:
         from ..core.collection import resolve_device

@@ -228,6 +228,39 @@ def test_crud_list_mode_and_stats(tmp_path):
     c.close()
 
 
+def test_list_mode_sort_cached_per_generation(tmp_path):
+    """tests/test_round3.py's case on both packages: repeated pagination
+    does not re-sort, a mutation re-sorts once, and the pages agree."""
+    ids = [3, 30, 7, 100, 25, 9]
+    vecs = np.tile(np.arange(4, dtype=float), (len(ids), 1))
+    pages = {}
+    for pkg, kw in ((jdb, {}), (tdb, {"device": "cpu"})):
+        c = pkg.Collection(pkg.CollectionOptions(
+            name=str(tmp_path / f"{pkg.__name__}.dat"), dimension_count=4,
+            quantization=8, distance_method=pkg.COSINE,
+            create_and_overwrite=True, index_seed=7), **kw)
+        c.add_documents(ids, vecs,
+                        [json.dumps({"i": i}).encode() for i in ids])
+        r1 = c.search(pkg.SearchArgs(offset=1, limit=2))
+        sorts = c._list_sort_count
+        assert sorts >= 1
+        r2 = c.search(pkg.SearchArgs(offset=3, limit=2))
+        r3 = c.search(pkg.SearchArgs())
+        assert c._list_sort_count == sorts, "repeat pagination re-sorted"
+        c.add_document(5, vecs[0], b"{}")  # a mutation invalidates
+        r4 = c.search(pkg.SearchArgs())
+        assert c._list_sort_count == sorts + 1
+        c.search(pkg.SearchArgs(limit=3))
+        assert c._list_sort_count == sorts + 1
+        pages[pkg.__name__] = [[r.id for r in r.results]
+                               for r in (r1, r2, r3, r4)]
+        c.close()
+    # lexicographic decimal-string order: 100, 25, 3, 30, 7, 9
+    order = [100, 25, 3, 30, 7, 9]
+    assert pages["syzgydb_tpu_torch"] == pages["syzgydb_tpu"] == [
+        order[1:3], order[3:5], order, [100, 25, 3, 30, 5, 7, 9]]
+
+
 def test_unported_modes_raise(tmp_path):
     c = tdb.Collection(tdb.CollectionOptions(
         name=str(tmp_path / "c.dat"), dimension_count=4, quantization=8),

@@ -1103,15 +1103,43 @@ def test_cli_parses_serve_and_platform():
         cli.build_parser().parse_args(["--platform", "tpu"])
 
 
-@pytest.mark.parametrize("argv", [
-    ["--dump", "x.dat"], ["--export", "x.dat"],
-    ["--import", "x.json", "--output", "y.dat"],
-    ["--import-ref", "ref.dat", "--output", "y.dat"]])
-def test_cli_unported_verbs_raise(argv):
-    from syzgydb_tpu_torch.tools import cli
+@pytest.mark.parametrize("verb,want_rc,want_out", [
+    ("--dump", 0, "RECORD"), ("--export", 0, '"records": ['),
+    ("--import", 0, "Imported into"),
+    ("--import-ref", 0, "Imported 2 records"),
+    ("--import-no-output", 2, ""), ("--import-ref-no-output", 2, "")])
+def test_cli_tool_verbs(tmp_path, monkeypatch, capsys, verb, want_rc,
+                        want_out):
+    """Each tool verb runs with --platform cpu; --import and --import-ref
+    without --output return 2 and write nothing."""
+    import syzgydb_tpu_torch as tdb
+    from syzgydb_tpu_torch.server import config as tcfg
+    from syzgydb_tpu_torch.tools import cli, refimport
 
-    with pytest.raises(NotImplementedError, match="Queue 1, item 2"):
-        cli.main(argv)
+    monkeypatch.setattr(tcfg, "global_config", tcfg.global_config)
+    src, out = tmp_path / "src.dat", tmp_path / "out.dat"
+    c = tdb.Collection(tdb.CollectionOptions(
+        name=str(src), dimension_count=3, quantization=8), device="cpu")
+    c.add_documents([1, 2], np.eye(2, 3), [b'{"x": 1}', b"{}"])
+    c.close()
+    exp = tmp_path / "exp.json"
+    exp.write_text('{"collection": {"dimension_count": 3}, "records": '
+                   '[{"id": 4, "vector": [0, 1, 0], "metadata": {}}]}')
+    ref = tmp_path / "ref.dat"
+    ref.write_bytes(refimport.build_ref_file(
+        {"dimension_count": 3, "quantization": 8}, [
+            (1, np.ones(3), b"{}"), (2, np.zeros(3), b"{}")], 8))
+    argv = {"--dump": ["--dump", str(src)],
+            "--export": ["--export", str(src)],
+            "--import": ["--import", str(exp), "--output", str(out)],
+            "--import-ref": ["--import-ref", str(ref), "--output", str(out)],
+            "--import-no-output": ["--import", str(exp)],
+            "--import-ref-no-output": ["--import-ref", str(ref)]}[verb]
+    capsys.readouterr()
+    assert cli.main(argv + ["--platform", "cpu",
+                            "--data-folder", str(tmp_path)]) == want_rc
+    assert want_out in capsys.readouterr().out
+    assert out.exists() == (verb in ("--import", "--import-ref"))
 
 
 def test_cli_serve_without_platform_raises_on_a_host_without_cuda(
