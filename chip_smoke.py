@@ -38,6 +38,26 @@ JAX or of the JAX package.  Phases, each of which fails the run:
      fp32 kernel at seg 32; both radius phases must run K4's int8 route,
      the seg-64 ops phase K5/K6's, and the fp32 K4 and K5/K6 kernels must
      launch nowhere.
+  3a. mesh (syzgydb_tpu_torch/parallel/, Collection.use_mesh): the 1M
+     collection on a data-axis mesh of every CUDA device, or of cuda:0
+     four times on one card (the shards then run one after another), held
+     against itself on one device: high batches 1024, 64 and 8, exact
+     batch 8 and a filtered high batch 64 with ids and distances bit for
+     bit, every flag proven on the sharded state up the margin ladder; a
+     high radius batch 8 past the fused bound (K4 on every shard) with the
+     single device's and the fp64 oracle's id sets; medium batch 8 (K2 on
+     every shard) at recall@10 >= 0.99.  The launch counters are reset
+     before the sharded searches and read after: K1 once per shard per
+     fused dispatch, K4 and K2 on every shard.  A bounded mutation batch
+     (64 rows rewritten) is scattered per shard (one "scatter" sync, no
+     "full"), the sharded answer after it equals the single device's, the
+     rows are restored and use_mesh(None) gives back the single-device
+     answer.  Then models/embedder.train_step_sharded at full width (f32)
+     on a data 2 x feature 2 mesh against train_step on the same batch.
+     ms per batch (high 1024/64/8, medium 8) on the mesh and on one device
+     go on a {"mesh": {...}} line with the card's name and power limit,
+     beside the mesh run's own launch counts (the kernels line keeps the
+     main path's).
   3b. serving: the port's REST server (syzgydb_tpu_torch.server.rest) on
      CUDA with the 1M collection registered as "smoke", driven by 32
      keep-alive HTTP clients (one http.client connection per thread):
@@ -143,9 +163,9 @@ JAX or of the JAX package.  Phases, each of which fails the run:
      256-pair step (kernel time by name, elementwise share).  It prints
      {"training": {...}} with the card's name and power limit.
 
-The report line (serving numbers under "serving", the 64-bit phase under
-"e2e_64bit", the embedder's under "embedder", training under "training")
-comes before the
+The report line (the mesh phase under "mesh", serving numbers under
+"serving", the 64-bit phase under "e2e_64bit", the embedder's under
+"embedder", training under "training") comes before the
 {"kernels": [...]} line (K1-K6, and K1 and K4 on f32 codes with the
 64-bit phase's launches and errors; every row's bound_ms is the larger of
 the operations over the bf16 tensor rate and the bytes over the memory
@@ -686,10 +706,11 @@ def proven_rows(coll, tq, bits: int):
         margin
 
 
-def main_path(dev, report: dict):
+def ingest_corpus(report: dict):
+    """The main path's 1M x 384 cosine 8-bit collection, ingested through
+    Collection.add_documents -> (collection, its folder, the queries, the
+    first ROWS64 rows)."""
     import syzgydb_tpu_torch as tdb
-    from syzgydb_tpu_torch.core import capacity
-    from syzgydb_tpu_torch.ops import hamming_scan, scan
 
     t0 = time.perf_counter()
     db, queries = make_corpus()
@@ -709,6 +730,15 @@ def main_path(dev, report: dict):
     del db
     log(f"ingested {N_ROWS} rows in {report['ingest_s']:.1f} s "
         f"(capacity {coll.columns.capacity})")
+    return coll, tmp, queries, rows64
+
+
+def main_path(dev, report: dict):
+    import syzgydb_tpu_torch as tdb
+    from syzgydb_tpu_torch.core import capacity
+    from syzgydb_tpu_torch.ops import hamming_scan, scan
+
+    coll, tmp, queries, rows64 = ingest_corpus(report)
 
     # every kernel's count starts at 0 here and is read after the last
     # phase; the oracle between phases launches none of them
@@ -1071,6 +1101,318 @@ def profile_batches(coll, batches) -> dict:
         for k, t in top_host:
             log(f"    {t:9.3f} ms  host: {k}")
     return out
+
+
+# ---------------------------------------------------------------------------
+# phase 3a: the main path on a mesh
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 4  # data shards on a one-card mesh
+MESH_MUTATED = 64  # rows rewritten by the bounded mutation batch
+# the sharded train step against the unsharded one (full width, f32, one
+# SGD step at lr 1e-2): the loss within 1e-5 relative, every parameter
+# within SGD_ATOL, and each parameter tensor within the larger of
+# MESH_STEP_RTOL of its largest step and MESH_ULPS f32 ulps of its largest
+# |p|.  Summation order moved no tensor's step by more than 7.8e-4 of
+# its largest (the H100 and the CPU at full width), the worst a LayerNorm
+# scale near 1.0 by one ulp of the parameter; a missing replica sum or a
+# wrong split moves it by half of it or more.
+MESH_TRAIN_PAIRS, MESH_LOSS_RTOL = 16, 1e-5
+MESH_STEP_RTOL, MESH_ULPS = 1e-3, 2
+
+
+ONE_CARD = (f"{MESH_SHARDS} shards on one H100, run one after another: "
+            f"not a multi-GPU rate")
+
+
+def mesh_devices() -> tuple[list, str]:
+    """Every CUDA device when there are two or more, else cuda:0 four
+    times, and what the times on that mesh are."""
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return [torch.device("cuda", i) for i in range(n)], \
+            f"{n} shards on {n} GPUs"
+    return [torch.device("cuda", 0)] * MESH_SHARDS, ONE_CARD
+
+
+class DispatchCount:
+    """Counts the sharded dispatches Collection makes (parallel/search's
+    entry points, wrapped while the phase runs): fused and non-fused exact
+    dispatches, and sketch dispatches."""
+
+    def __init__(self):
+        from syzgydb_tpu_torch.parallel import search as psearch
+
+        self.mod = psearch
+        self.real = (psearch.sharded_exact_topk, psearch.sharded_ann_topk)
+        self.n = {"fused": 0, "surface": 0, "ann": 0}
+
+        def exact(mesh, queries, codes, norms, valid, **kw):
+            fused = psearch.fused_ok(kw["k"], norms[0].shape[0])
+            self.n["fused" if fused else "surface"] += 1
+            return self.real[0](mesh, queries, codes, norms, valid, **kw)
+
+        def ann(*a, **kw):
+            self.n["ann"] += 1
+            return self.real[1](*a, **kw)
+
+        psearch.sharded_exact_topk, psearch.sharded_ann_topk = exact, ann
+
+    def close(self) -> None:
+        self.mod.sharded_exact_topk, self.mod.sharded_ann_topk = self.real
+
+
+def same_answers(got, want, what: str) -> None:
+    """Ids and distances bit for bit."""
+    bad = []
+    for i, (g, w) in enumerate(zip(got, want)):
+        a = [(r.id, r.distance.hex()) for r in g.results]
+        b = [(r.id, r.distance.hex()) for r in w.results]
+        if a != b:
+            j = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            bad.append(f"query {i} from position {j}: {a[j:j + 3]} against "
+                       f"{b[j:j + 3]} (lengths {len(a)}, {len(b)})")
+    if bad:
+        raise AssertionError(f"{what}: {len(bad)} queries differ from the "
+                             f"single device's answer; " + "; ".join(bad[:8]))
+
+
+def mesh_proven(coll, tq) -> tuple[list, float, int]:
+    """The mesh's flags on the collection's sharded state, up the margin
+    ladder from the mesh default until every flag is 1 -> (ids per query,
+    the first rung's ok share, the proving margin)."""
+    from syzgydb_tpu_torch.parallel import search as psearch
+
+    st = coll._device_state()
+    margin, first = psearch.DEFAULT_MESH_SEG_MARGIN, None
+    while True:
+        _, r, ok = psearch.sharded_exact_topk(
+            coll._mesh, tq, st["codes"], st["norms"], st["valid"], bits=8,
+            metric=coll.metric, k=K, seg_margin=margin, with_ties=True)
+        frac = float(ok.float().mean())
+        first = frac if first is None else first
+        if frac == 1.0:
+            break
+        margin = coll._escalate_margin(margin)
+    ids = coll.columns.ids
+    return [[int(ids[x]) for x in row] for row in r.cpu().numpy()], first, \
+        margin
+
+
+def mesh_train_step(devices: list) -> dict:
+    """train_step_sharded at full width (f32) on a data 2 x feature 2 mesh
+    of the card's devices against the unsharded train_step on the same
+    batch and weights: the loss within MESH_LOSS_RTOL, every parameter
+    within SGD_ATOL, and each parameter tensor within max(MESH_STEP_RTOL x
+    its largest step, MESH_ULPS ulps of its largest |p|) after the step."""
+    from syzgydb_tpu_torch.models import embedder as te
+    from syzgydb_tpu_torch.parallel import mesh as mesh_mod
+
+    cfg = te.EmbedderConfig(dtype="float32")
+    emb = te.TextEmbedder(cfg, seed=0, device=devices[0])
+    mesh = mesh_mod.make_mesh(mesh_mod.MeshConfig(data=2, feature=2),
+                              [devices[i % len(devices)] for i in range(4)])
+    batch = train_batch(emb.tokenizer, 81, MESH_TRAIN_PAIRS)
+    before = {n: p.detach().to("cpu", copy=True) for n, p in
+              emb.train_model().named_parameters()}
+    sharded = te.ShardedEncoder(mesh, emb.train_model())
+    t0 = time.perf_counter()
+    sloss = float(te.train_step_sharded(mesh, sharded, *batch, lr=1e-2))
+    torch.cuda.synchronize()
+    sharded_ms = (time.perf_counter() - t0) * 1000.0
+    plain = emb.train_model()
+    t0 = time.perf_counter()
+    ploss = float(te.train_step(plain, *batch, lr=1e-2))
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1000.0
+    got = sharded.state_dict()
+    max_abs, worst, off = 0.0, (0.0, ""), []
+    for name, p in plain.named_parameters():
+        p = p.detach().cpu()
+        diff = float((got[name] - p).abs().max())
+        max_abs = max(max_abs, diff)
+        step = float((p - before[name]).abs().max())
+        ulp = float(np.spacing(np.float32(p.abs().max())))
+        bound = max(MESH_STEP_RTOL * step, MESH_ULPS * ulp)
+        worst = max(worst, (diff / bound, name))
+        if diff > bound:
+            off.append((name, diff, bound))
+    loss_rel = abs(sloss - ploss) / abs(ploss)
+    out = {"mesh": "data 2 x feature 2", "devices": [str(d) for d in
+                                                     mesh.devices.ravel()],
+           "pairs": MESH_TRAIN_PAIRS, "loss": sloss, "plain_loss": ploss,
+           "loss_rel_err": loss_rel, "max_abs_param_err": max_abs,
+           "max_err_over_bound": worst[0], "worst_tensor": worst[1],
+           "first_step_ms": sharded_ms, "plain_first_step_ms": plain_ms}
+    log(f"mesh train step: {out}")
+    if loss_rel > MESH_LOSS_RTOL or max_abs > SGD_ATOL or off:
+        raise AssertionError(f"sharded train step off the unsharded one: "
+                             f"{off[:8]}; {out}")
+    return out
+
+
+def mesh_phase(coll, tq, rows64: np.ndarray, dev, card: str,
+               report: dict) -> None:
+    """Phase 3a: the 1M collection on a mesh of every CUDA device, or of
+    cuda:0 four times, against itself on one device."""
+    import syzgydb_tpu_torch as tdb
+    from syzgydb_tpu_torch.parallel import mesh as mesh_mod
+
+    t_phase = time.perf_counter()
+    devices, how = mesh_devices()
+    mesh = mesh_mod.make_mesh(mesh_mod.MeshConfig(data=len(devices)),
+                              devices)
+    shards = mesh.shape["data"]
+    log(f"mesh phase: {how}")
+    hint = (coll._seg_margin_hint, coll._hint_fail_streak)
+    queries = tq.cpu().numpy()
+    half = N_ROWS // 2
+    flt = f"i < {half}"
+
+    def args(qs, precision, **kw):
+        return [tdb.SearchArgs(vector=q, k=K, precision=precision, **kw)
+                for q in qs]
+
+    oracle = oracle_vectors(coll, dev)
+    rq = queries[128:136]
+    radii, rad_truth = oracle_radius(oracle, rq, 2000)
+    truth8 = oracle_top10(oracle, queries[:8])
+    del oracle
+
+    # the radius group runs first, from no margin hint: its first
+    # dispatch (k = 1024) then selects from K4's surface on every shard at
+    # the mesh's default margin, where a hint widened by an escalation
+    # could select every row and skip K4
+    runs = {
+        "radius_high_batch8": lambda: coll.radius_many([
+            tdb.SearchArgs(vector=q, radius=r, precision="high")
+            for q, r in zip(rq, radii)]),
+        "high_batch1024": lambda: coll.search_many(args(queries, "high")),
+        "high_batch64": lambda: coll.search_many(args(queries[:64], "high")),
+        "high_batch8": lambda: coll.search_many(args(queries[:8], "high")),
+        "exact_batch8": lambda: coll.search_many(args(queries[:8], "exact")),
+        "filter_high_batch64": lambda: coll.search_many(
+            args(queries[:64], "high", filter_query=flt)),
+        "medium_batch8": lambda: coll.search_many(
+            args(queries[:8], "medium"))}
+    timed = {"high_batch1024": 5, "high_batch64": 10, "high_batch8": 10,
+             "medium_batch8": 10}
+
+    def times() -> dict:
+        return {name: statistics.median(wall_ms(runs[name], reps))
+                for name, reps in timed.items()}
+
+    single = {name: fn() for name, fn in runs.items()}
+    single_ms = times()
+
+    coll.use_mesh(mesh)
+    coll._seg_margin_hint, coll._hint_fail_streak = None, 0
+    count = DispatchCount()
+    try:
+        reset_counters()
+        t0 = time.perf_counter()
+        got, per_run = {}, {}
+        for name, fn in runs.items():
+            before = dict(count.n)
+            got[name] = fn()
+            per_run[name] = {k: count.n[k] - before[k] for k in before}
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        launches = counters()
+        dispatches = dict(count.n)
+    finally:
+        count.close()
+    log(f"mesh launches {launches}, dispatches {dispatches} ({per_run})")
+    # K1 once per shard per fused dispatch, K4 on every shard of the
+    # radius group's non-fused dispatches, K2 once per shard per sketch
+    # dispatch
+    if dispatches["fused"] == 0 or \
+            launches["segmin"] != shards * dispatches["fused"] or \
+            launches["segmin_i8"] != launches["segmin"]:
+        raise AssertionError(f"K1 did not launch once per shard per "
+                             f"dispatch: {launches}, {dispatches}")
+    if dispatches["surface"] == 0 or launches["surface_i8"] < \
+            shards * dispatches["surface"] or launches["surface_i8"] % shards:
+        raise AssertionError(f"K4 did not launch on every shard: "
+                             f"{launches}, {dispatches}")
+    if dispatches["ann"] == 0 or \
+            launches["hamming"] != shards * dispatches["ann"]:
+        raise AssertionError(f"K2 did not launch once per shard per "
+                             f"dispatch: {launches}, {dispatches}")
+
+    errors = []
+    for name in ("high_batch1024", "high_batch64", "high_batch8",
+                 "exact_batch8", "filter_high_batch64"):
+        try:
+            same_answers(got[name], single[name], f"mesh {name}")
+        except AssertionError as exc:
+            errors.append(str(exc))
+    if errors:
+        raise AssertionError(" | ".join(errors))
+    if any(r.id >= half for x in got["filter_high_batch64"]
+           for r in x.results):
+        raise AssertionError("mesh filtered search left its filter")
+    rad_got = [{r.id for r in x.results} for x in got["radius_high_batch8"]]
+    if rad_got != [{r.id for r in x.results}
+                   for x in single["radius_high_batch8"]] or \
+            rad_got != rad_truth:
+        raise AssertionError("mesh radius id sets differ from the single "
+                             "device's or the fp64 oracle's")
+    med_recall = recall(got["medium_batch8"], truth8)
+    if med_recall < 0.99:
+        raise AssertionError(f"mesh medium recall {med_recall} < 0.99")
+    flags = {}
+    for name, q in (("high_batch1024", tq), ("high_batch64", tq[:64]),
+                    ("high_batch8", tq[:8])):
+        ids, first, margin = mesh_proven(coll, q)
+        if ids != [[r.id for r in x.results] for x in got[name]]:
+            raise AssertionError(f"mesh {name}: proven rows differ from "
+                                 f"its results")
+        flags[name] = {"first_rung_ok_frac": first, "proven_margin": margin}
+    mesh_ms = times()
+
+    # a bounded mutation batch, scattered per shard: MESH_MUTATED rows
+    # rewritten near queries 0..63, then the same rows under one device
+    ids = np.arange(1000, 1000 + MESH_MUTATED)
+    metas = [b'{"i":%d}' % i for i in ids]
+    moved = queries[:MESH_MUTATED].astype(np.float64) + 1e-3
+    before = dict(coll.sync_stats)
+    coll.add_documents(ids.tolist(), moved, metas)
+    mutated = runs["high_batch64"]()
+    if coll.sync_stats["scatter"] != before["scatter"] + 1 or \
+            coll.sync_stats["full"] != before["full"]:
+        raise AssertionError(f"the mutation was not scattered per shard: "
+                             f"{before} -> {coll.sync_stats}")
+    planted = float(np.mean([x.results[0].id == 1000 + i
+                             for i, x in enumerate(mutated)]))
+    if planted < 0.9:
+        raise AssertionError(f"the rewritten rows came first for only "
+                             f"{planted} of their queries")
+    coll.use_mesh(None)
+    same_answers(mutated, runs["high_batch64"](), "mesh after mutation")
+    # restore: the same rows with the same vectors, then a fresh placement
+    # (device-encoded sketches, as the main path placed them)
+    coll.add_documents(ids.tolist(), rows64[ids], metas)
+    coll.use_mesh(None)
+    same_answers(runs["high_batch64"](), single["high_batch64"],
+                 "single device after use_mesh(None)")
+    coll._seg_margin_hint, coll._hint_fail_streak = hint
+
+    train = mesh_train_step(devices)
+    out = {"card": card, "mesh": [str(d) for d in devices], "shards": shards,
+           "how": how, "launches": launches, "dispatches": dispatches,
+           "dispatches_per_run": per_run, "first_run_s": first_s,
+           "flags": flags,
+           "medium_recall_at_10": med_recall,
+           "mutation": {"rows": MESH_MUTATED, "planted_top1_frac": planted,
+                        "sync_stats": dict(coll.sync_stats)},
+           "ms_per_batch": {"mesh": mesh_ms, "one_device": single_ms,
+                            "note": how},
+           "train_step": train,
+           "phase_s": time.perf_counter() - t_phase}
+    print(json.dumps({"mesh": out}), flush=True)
+    report["mesh"] = out
 
 
 # ---------------------------------------------------------------------------
@@ -3040,6 +3382,7 @@ def main() -> int:
 
     errs = check_kernels(dev)
     coll, tmp, state, tq, launches, rows64 = main_path(dev, report)
+    mesh_phase(coll, tq, rows64, dev, card, report)
     serving(coll, tmp, tq.cpu().numpy(), rows64[:FLOW_ROWS], dev, report)
     e64 = e2e_64bit(rows64, tq.cpu().numpy(), dev, report)
     rows_text = rows64[:TEXT_ROWS].copy()

@@ -12,7 +12,9 @@ BEFORE an allocator runs out mid-operation.
            branch's K4 surface chunks and the selection beside them) —
            checked against the card's total memory
            (torch.cuda.mem_get_info) on CUDA placements and skipped on the
-           CPU, where the host check covers the columns.
+           CPU, where the host check covers the columns.  Under a mesh
+           (Collection.use_mesh) the peak divides over the data shards, and
+           each shard device is checked for the shards it holds.
 
 The port has no lean placement and no derived code layouts (lane slab,
 interleaved operand), so the estimate is one codes buffer.
@@ -155,12 +157,26 @@ def preflight(collection, n_new: int, meta_bytes_new: int = 0) -> None:
             f"after removing rows, lower the quantization width, or run "
             f"on a larger-memory host.")
 
-    budget = device_budget(collection.device)
-    if budget is not None and est["device_peak"] > budget * _DEVICE_MARGIN:
-        raise CapacityError(
-            f"ingest of {n_new} rows would grow collection "
-            f"'{collection.options.name}' to capacity {new_cap} "
-            f"({dims}-d, {q}-bit), placing ~{_gib(est['device_peak'])} "
-            f"(codes+norms+valid+hashes+search transient) against a "
-            f"{_gib(budget)} GPU. Nothing was written. Options: lower the "
-            f"quantization width or split into multiple collections.")
+    mesh = collection._mesh
+    if mesh is None:
+        loads = {collection.device: est["device_peak"]}
+    else:
+        # the per-device peak divides over the data shards; a device that
+        # holds several shards (a repeated mesh device) carries each
+        per_shard = est["device_peak"] // mesh.shape["data"]
+        loads = {}
+        for dev in mesh.row_devices():
+            loads[dev] = loads.get(dev, 0) + per_shard
+    for dev, load in loads.items():
+        budget = device_budget(dev)
+        if budget is not None and load > budget * _DEVICE_MARGIN:
+            where = "" if mesh is None else \
+                f" on {dev} (its shards of a {mesh.shape['data']}-shard mesh)"
+            raise CapacityError(
+                f"ingest of {n_new} rows would grow collection "
+                f"'{collection.options.name}' to capacity {new_cap} "
+                f"({dims}-d, {q}-bit), placing ~{_gib(load)}{where} "
+                f"(codes+norms+valid+hashes+search transient) against a "
+                f"{_gib(budget)} GPU. Nothing was written. Options: shard "
+                f"over more devices (use_mesh), lower the quantization "
+                f"width or split into multiple collections.")

@@ -39,8 +39,10 @@ dirty-row batches are scattered in place) and run there.
 
 The device is a constructor argument, not an option: ``Collection(options,
 device=None)`` runs on CUDA unless the caller passes ``device="cpu"``, and
-raises when CUDA is asked for and absent.  Multi-device meshes are not
-ported yet and raise NotImplementedError.
+raises when CUDA is asked for and absent.  ``use_mesh(mesh)`` shards the
+device columns over a mesh's data axis (parallel/mesh.py): shard i holds a
+contiguous block of rows on its own device, and searches run per shard and
+merge on the mesh's lead device (parallel/search.py).
 """
 
 from __future__ import annotations
@@ -273,6 +275,7 @@ class Collection:
             raise
         self._dev_version = -1
         self._dev: dict | None = None
+        self._mesh = None  # parallel.mesh.Mesh: set by use_mesh
         self._hashes_stale = False
         self._closed = False
         # Adaptive provable-selection margin: the margin that proved
@@ -508,9 +511,21 @@ class Collection:
     # -- device cache ------------------------------------------------------
 
     def use_mesh(self, mesh) -> None:
-        raise NotImplementedError(
-            "multi-device placement is not ported yet "
-            "(ROADMAP.md Queue 1, item 4: Multi-GPU)")
+        """Shard this collection's device columns over a parallel.mesh.Mesh
+        with a 'data' axis (row blocks per device; searches run per shard
+        and merge on the mesh's lead device — parallel/search.py).  Pass
+        None to return to single-device placement."""
+        if mesh is not None:
+            if "data" not in mesh.shape:
+                raise ValueError("mesh must have a 'data' axis")
+            if mesh.shape.get("feature", 1) != 1:
+                raise ValueError(
+                    "collection-integrated meshes shard only the N axis; "
+                    "use parallel.search directly for feature sharding")
+        with self._lock:
+            self._mesh = mesh
+            self._dev = None
+            self._dev_version = -1
 
     def _device_state(self) -> dict:
         """Place the columns on the device if the mutation generation
@@ -520,7 +535,7 @@ class Collection:
         if self._hashes_stale and len(self.columns) >= MIN_INDEX_SIZE:
             self._rebuild_index()
         if self._dev is not None and self._dev_version != self.columns.version \
-                and self._dev["valid"].shape[0] == self.columns.capacity:
+                and self._dev["capacity"] == self.columns.capacity:
             rows = self.columns.drain_dirty()
             if rows is not None and len(rows) <= max(
                     1024, self.columns.capacity // 8):
@@ -535,28 +550,56 @@ class Collection:
             self.columns._dirty_rows.clear()
             self.sync_stats["full"] += 1
             self._dev = None  # release the old placement before the new one
-            dev = convert.device_state_from_numpy(
-                self.columns.codes, self.columns.norms, self.columns.valid,
-                None, bits=self.quantization, device=self.device)
-            dev["hashes"] = self.index.encode_codes_device(dev["codes"],
-                                                           self.quantization)
+            if self._mesh is not None:
+                # shard i: capacity rows [i * n_local, (i + 1) * n_local) on
+                # its device (the last shard padded with invalid rows), its
+                # sketches encoded there
+                from ..parallel import mesh as mesh_mod
+                dev = mesh_mod.place(self._mesh, self.columns.codes,
+                                     self.columns.norms, self.columns.valid,
+                                     bits=self.quantization)
+                dev["hashes"] = [self.index.encode_codes_device(
+                    c[0], self.quantization) for c in dev["codes"]]
+            else:
+                dev = convert.device_state_from_numpy(
+                    self.columns.codes, self.columns.norms,
+                    self.columns.valid, None, bits=self.quantization,
+                    device=self.device)
+                dev["hashes"] = self.index.encode_codes_device(
+                    dev["codes"], self.quantization)
+            dev["capacity"] = self.columns.capacity
             self._dev = dev
             self._dev_version = self.columns.version
         return self._dev
 
     def _scatter_rows(self, rows: np.ndarray) -> None:
         """Write a bounded set of mutated rows into the device columns in
-        place (index_copy_).  Searches already enqueued on the stream read
-        the old rows first; later ones see the new."""
+        place (index_copy_); under a mesh each row goes to its shard
+        (row // n_local) and is scattered there.  Searches already enqueued
+        on the stream read the old rows first; later ones see the new."""
         dev = self._dev
-        idx = torch.from_numpy(np.asarray(rows, dtype=np.int64)).to(
-            self.device)
-        upd = convert.device_state_from_numpy(
-            self.columns.codes[rows], self.columns.norms[rows],
-            self.columns.valid[rows], self.columns.hashes[rows],
-            bits=self.quantization, device=self.device)
-        for name, new in upd.items():
-            dev[name].index_copy_(0, idx, new)
+        rows = np.asarray(rows, dtype=np.int64)
+        if self._mesh is None:
+            targets = [(self.device, rows, rows, dev)]
+        else:
+            n_local = dev["n_local"]
+            shard = rows // n_local
+            targets = []
+            for i, d in enumerate(self._mesh.row_devices()):
+                sel = rows[shard == i]
+                if len(sel):
+                    targets.append((d, sel, sel - i * n_local, {
+                        "codes": dev["codes"][i][0], "norms": dev["norms"][i],
+                        "valid": dev["valid"][i],
+                        "hashes": dev["hashes"][i]}))
+        for device, sel, local, cols in targets:
+            idx = torch.from_numpy(local).to(device)
+            upd = convert.device_state_from_numpy(
+                self.columns.codes[sel], self.columns.norms[sel],
+                self.columns.valid[sel], self.columns.hashes[sel],
+                bits=self.quantization, device=device)
+            for name, new in upd.items():
+                cols[name].index_copy_(0, idx, new)
 
     # -- filters -----------------------------------------------------------
 
@@ -753,17 +796,12 @@ class Collection:
         if use_index:
             budget = min(max(self.options.search_budget,
                              4 * max(args.k, 1)), self.columns.capacity)
-            qcode = torch.from_numpy(self.index.encode_np(
-                np.float32(qvecs)).view(np.int32)).to(self.device)
+            qcode = self._qcodes(qvecs)
             cap = min(n_passing, self.columns.capacity)
 
             def ann_dispatch(dev_now, valid_now, b):
-                _, cand = hamming.hamming_candidates(qcode, dev_now["hashes"],
-                                                     valid_now, b)
-                return hamming.rerank_topk(
-                    queries, dev_now["codes"], dev_now["norms"], valid_now,
-                    cand, self.quantization, self.metric, b,
-                    with_counts=True)
+                return self._ann_topk(qcode, queries, dev_now, valid_now, b,
+                                      b)
 
             b = budget
             dist, rows, nsc = ann_dispatch(dev, valid, b)
@@ -889,8 +927,10 @@ class Collection:
 
     def _small(self) -> bool:
         """Small-collection host path: below HOST_SCAN_MAX_ELEMS stored
-        elements a host f64 scan answers without touching the device."""
-        return self.columns.size * self.dimension_count <= HOST_SCAN_MAX_ELEMS
+        elements a host f64 scan answers without touching the device (never
+        under a mesh)."""
+        return (self._mesh is None and self.columns.size *
+                self.dimension_count <= HOST_SCAN_MAX_ELEMS)
 
     def _exact_topk_device(self, queries, dev, valid, kk: int,
                            tie_margin: Optional[int] = None):
@@ -902,26 +942,62 @@ class Collection:
         segment or row selected).  Past the fused bound (large k, or a large
         batch at radius k) the dispatch selects rows from kernel K4's full
         surface (scan.surface_topk): its margin, s_used and nseg count rows,
-        a margin of m segments standing for the m * 32 rows they hold."""
-        margin = scan.default_tie_margin() \
-            if tie_margin is None else tie_margin
-        if scan.fused_k_ok(kk, queries.shape[0]):
-            if tie_margin is None and kk > scan.MAX_FUSED_K:
-                # large k: tie density at the k-th value scales with k
-                margin = max(margin, 64)
-            nseg = self.columns.capacity // scan.DEFAULT_SEG
+        a margin of m segments standing for the m * 32 rows they hold.
+        Under a mesh every data shard does the same on its rows
+        (parallel/search.sharded_exact_topk: fused when kk <= 128), its s_used
+        and nseg counting one shard's segments or rows."""
+        if self._mesh is None:
+            n = self.columns.capacity
+            fused = scan.fused_k_ok(kk, queries.shape[0])
+            margin = scan.default_tie_margin()
+        else:
+            from ..parallel import search as psearch
+            n = dev["n_local"]
+            fused = psearch.fused_ok(kk, n)
+            margin = psearch.DEFAULT_MESH_SEG_MARGIN
+        if tie_margin is not None:
+            margin = tie_margin
+        elif fused and kk > scan.MAX_FUSED_K:
+            # large k: tie density at the k-th value scales with k
+            margin = max(margin, 64)
+        row_margin = min(margin * scan.DEFAULT_SEG, n)
+        if self._mesh is not None:
+            dist, rows, ties = psearch.sharded_exact_topk(
+                self._mesh, queries, dev["codes"], dev["norms"], valid,
+                bits=self.quantization, metric=self.metric, k=kk,
+                seg_margin=margin, with_ties=True)
+        elif fused:
             dist, rows, ties = scan.fused_scan_topk(
                 queries, dev["codes"], dev["norms"], valid,
                 bits=self.quantization, metric=self.metric, k=kk,
                 tie_margin=margin, with_ties=True)
+        else:
+            dist, rows, ties = scan.surface_topk(
+                queries, dev["codes"], dev["norms"], valid,
+                bits=self.quantization, metric=self.metric, k=kk,
+                margin=row_margin)
+        if fused:
+            nseg = n // scan.DEFAULT_SEG
             return dist, rows, ties, min(kk + margin, nseg), nseg
-        n = self.columns.capacity
-        row_margin = min(margin * scan.DEFAULT_SEG, n)
-        dist, rows, ties = scan.surface_topk(
-            queries, dev["codes"], dev["norms"], valid,
-            bits=self.quantization, metric=self.metric, k=kk,
-            margin=row_margin)
         return dist, rows, ties, min(kk + row_margin, n), n
+
+    def _ann_topk(self, qcode, queries, dev, valid, budget: int, k: int):
+        """The sketch route: K2 candidates and their fp32 rerank -> (dist,
+        rows, nscored); under a mesh each data shard ranks its own rows
+        with budget / shards candidates (parallel/search.sharded_ann_topk)."""
+        if self._mesh is not None:
+            from ..parallel import search as psearch
+            shards = self._mesh.shape["data"]
+            return psearch.sharded_ann_topk(
+                self._mesh, qcode, queries, dev["codes"], dev["norms"],
+                dev["hashes"], valid, bits=self.quantization,
+                metric=self.metric, k=k, local_budget=max(1, budget // shards),
+                with_counts=True)
+        _, cand = hamming.hamming_candidates(qcode, dev["hashes"], valid,
+                                             budget)
+        return hamming.rerank_topk(queries, dev["codes"], dev["norms"], valid,
+                                   cand, self.quantization, self.metric, k,
+                                   with_counts=True)
 
     def _leased_finish(self, fin: Callable) -> Callable:
         """Hold a column-store snapshot lease across a deferred result
@@ -941,19 +1017,35 @@ class Collection:
                         self.columns.end_lease()
         return finish_leased
 
+    def _lead(self) -> torch.device:
+        """Where queries are built and results land: the mesh's lead device,
+        else the collection's."""
+        return self.device if self._mesh is None else self._mesh.lead
+
     def _queries(self, qvecs: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.float32(qvecs)).to(self.device)
+        return torch.from_numpy(np.float32(qvecs)).to(self._lead())
+
+    def _qcodes(self, qvecs: np.ndarray) -> torch.Tensor:
+        """The queries' sketches (int32 words) on the lead device."""
+        return torch.from_numpy(self.index.encode_np(
+            np.float32(qvecs)).view(np.int32)).to(self._lead())
 
     def _valid(self, dev: dict, args: SearchArgs,
-               mask: Optional[np.ndarray] = None) -> torch.Tensor:
+               mask: Optional[np.ndarray] = None):
         """The validity column a search runs with: the placed column when
         unfiltered, else the filter mask (re-evaluated when not given;
-        query strings hit the mask cache) uploaded to the device."""
+        query strings hit the mask cache) uploaded to the device — under a
+        mesh, split into each shard's rows on its device."""
         if args.filter is None and not args.filter_query:
             return dev["valid"]
         if mask is None:
             mask, _ = self._filter_mask(args)
-        return torch.from_numpy(mask).to(self.device)
+        if self._mesh is None:
+            return torch.from_numpy(mask).to(self.device)
+        from ..parallel import mesh as mesh_mod
+        return [torch.from_numpy(m).to(d) for m, d in zip(
+            mesh_mod.split_rows(self._mesh, mask, dev["n_local"]),
+            self._mesh.row_devices())]
 
     def _knn_many_async(self, qvecs: np.ndarray, args: SearchArgs,
                         n_records: int, n_real: Optional[int] = None
@@ -993,13 +1085,8 @@ class Collection:
                 out = [SearchResults([], self._pct(searched, n_records))
                        for _ in range(nq)]
                 return lambda: out
-            qcode = torch.from_numpy(self.index.encode_np(
-                np.float32(qvecs)).view(np.int32)).to(self.device)
-            _, cand = hamming.hamming_candidates(qcode, dev["hashes"], valid,
-                                                 budget)
-            dist, rows, nsc = hamming.rerank_topk(
-                queries, dev["codes"], dev["norms"], valid, cand,
-                self.quantization, self.metric, k, with_counts=True)
+            dist, rows, nsc = self._ann_topk(self._qcodes(qvecs), queries,
+                                             dev, valid, budget, k)
 
             def finish_ann() -> list[SearchResults]:
                 dist_np, rows_np, cnt = self._fetch_results(dist, rows, nsc)

@@ -35,7 +35,11 @@ through the same Encoder on the f32 masters: a Dense layer casts its f32
 weight to the compute dtype inside the forward, so the gradients land in
 f32, as the JAX package's do.  `TextEmbedder.train_model()` hands out the
 masters on the embedder's device and `refresh()` rebuilds the serving copy
-from them after the steps.
+from them after the steps.  On a device mesh (parallel/mesh.py),
+`embedder_shardings` splits the MLP and attention projections over the
+feature axis, `ShardedEncoder` holds the split masters, and
+`train_step_sharded` is `train_step` with the batch split over the data
+axis (the JAX package's `embedder_shardings` under GSPMD).
 """
 
 from __future__ import annotations
@@ -94,6 +98,51 @@ class EmbedderConfig:
         return DTYPES[self.dtype]
 
 
+def _dense(x, weight, bias, dt):
+    """flax Dense(dtype=dt)'s arithmetic; bias None leaves it out (a
+    feature shard's partial product, whose bias is added after the sum)."""
+    y = F.linear(x.to(dt), weight.to(dt))
+    return y if bias is None else y + bias.to(dt)
+
+
+def _layer_norm(x, weight, bias, eps: float):
+    """flax LayerNorm(dtype=float32)'s arithmetic."""
+    x = x.float()
+    mu = x.mean(-1, keepdim=True)
+    var = ((x * x).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
+    return (x - mu) * (torch.rsqrt(var + eps) * weight) + bias
+
+
+def _attention_scale(cfg) -> float:
+    """flax divides by sqrt(head_dim) rounded to the compute dtype."""
+    return float(torch.tensor(math.sqrt(cfg.hidden // cfg.heads))
+                 .to(cfg.torch_dtype))
+
+
+def _attend(qkv, keep, heads: int, scale: float, dt):
+    """Attention over the (b, n, 3 * heads * hd) output of the q/k/v Dense
+    -> (b, n, heads * hd), masked keys filled with dt's finfo.min."""
+    b, n, width = qkv.shape
+    hd = width // (3 * heads)
+    q, k, v = qkv.view(b, n, 3, heads, hd) \
+        .permute(2, 0, 3, 1, 4).unbind(0)               # (b, heads, n, hd)
+    q = q / scale
+    s = torch.matmul(q, k.transpose(-1, -2))            # (b, heads, n, n)
+    s = s.masked_fill(~keep, torch.finfo(dt).min)
+    s = torch.exp(s - s.amax(-1, keepdim=True))
+    w = s / s.sum(-1, keepdim=True)
+    return torch.matmul(w, v).transpose(1, 2).reshape(b, n, heads * hd)
+
+
+def _pool(x, mask):
+    """Masked mean pooling -> L2 normalize (sentence-transformers recipe)."""
+    m = mask[:, :, None]
+    pooled = (x * m).sum(1) / m.sum(1).clamp_min(1.0)
+    pooled = pooled.float()
+    return pooled / torch.linalg.vector_norm(
+        pooled, dim=-1, keepdim=True).clamp_min(1e-9)
+
+
 class Dense(nn.Module):
     """flax Dense(dtype=dt): input, kernel and bias cast to dt, the bias
     added to the product after it is rounded to dt.  Weight in nn.Linear's
@@ -105,7 +154,7 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(n_out))
 
     def forward(self, x, dt):
-        return F.linear(x.to(dt), self.weight.to(dt)) + self.bias.to(dt)
+        return _dense(x, self.weight, self.bias, dt)
 
 
 class Embed(nn.Module):
@@ -130,11 +179,7 @@ class LayerNorm(nn.Module):
         self.bias = nn.Parameter(torch.zeros(n))
 
     def forward(self, x):
-        x = x.float()
-        mu = x.mean(-1, keepdim=True)
-        var = ((x * x).mean(-1, keepdim=True) - mu * mu).clamp_min(0.0)
-        return (x - mu) * (torch.rsqrt(var + self.eps) * self.weight) + \
-            self.bias
+        return _layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class Attention(nn.Module):
@@ -144,24 +189,13 @@ class Attention(nn.Module):
     def __init__(self, cfg: EmbedderConfig):
         super().__init__()
         self.heads = cfg.heads
-        # flax divides by sqrt(head_dim) rounded to the compute dtype
-        self.scale = float(torch.tensor(math.sqrt(cfg.hidden // cfg.heads))
-                           .to(cfg.torch_dtype))
+        self.scale = _attention_scale(cfg)
         self.qkv = Dense(cfg.hidden, 3 * cfg.hidden)
         self.out = Dense(cfg.hidden, cfg.hidden)
 
     def forward(self, x, keep, dt):
-        b, n, h = x.shape
-        hd = h // self.heads
-        q, k, v = self.qkv(x, dt).view(b, n, 3, self.heads, hd) \
-            .permute(2, 0, 3, 1, 4).unbind(0)           # (b, heads, n, hd)
-        q = q / self.scale
-        s = torch.matmul(q, k.transpose(-1, -2))        # (b, heads, n, n)
-        s = s.masked_fill(~keep, torch.finfo(dt).min)
-        s = torch.exp(s - s.amax(-1, keepdim=True))
-        w = s / s.sum(-1, keepdim=True)
-        o = torch.matmul(w, v).transpose(1, 2).reshape(b, n, h)
-        return self.out(o, dt)
+        return self.out(_attend(self.qkv(x, dt), keep, self.heads,
+                                self.scale, dt), dt)
 
 
 class Block(nn.Module):
@@ -225,12 +259,7 @@ class Encoder(nn.Module):
             x = blk(x, keep, dt)
         if self.cfg.arch != "bert":
             x = self.final_ln(x)
-        # masked mean pooling -> L2 normalize (sentence-transformers recipe)
-        m = mask[:, :, None]
-        pooled = (x * m).sum(1) / m.sum(1).clamp_min(1.0)
-        pooled = pooled.float()
-        return pooled / torch.linalg.vector_norm(
-            pooled, dim=-1, keepdim=True).clamp_min(1e-9)
+        return _pool(x, mask)
 
 
 # -- the flax parameter tree --------------------------------------------------
@@ -531,6 +560,12 @@ def contrastive_loss(model: Encoder, ids_a, mask_a, ids_b, mask_b,
     with full_f32():
         za = model(*_batch(model, ids_a, mask_a))
         zb = model(*_batch(model, ids_b, mask_b))
+    return _info_nce(za, zb, temperature)
+
+
+def _info_nce(za, zb, temperature: float) -> torch.Tensor:
+    """contrastive_loss from the two sides' embeddings."""
+    with full_f32():
         logits = za @ zb.T / temperature
     li = -torch.log_softmax(logits, dim=1).diagonal().mean()
     lj = -torch.log_softmax(logits, dim=0).diagonal().mean()
@@ -579,4 +614,182 @@ def adamw_step(model: Encoder, opt: torch.optim.Optimizer, ids_a, mask_a,
         opt.zero_grad(set_to_none=True)
         loss.backward()
     opt.step()
+    return loss.detach()
+
+
+# -- data x tensor parallel training on a mesh -------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Split:
+    """A parameter split over a mesh's feature axis: dimension `dim` is cut
+    into one block per feature shard, and each of its `groups` equal parts
+    is cut alike (attn.qkv's q, k and v thirds: a shard holds the same heads
+    of each)."""
+    dim: int
+    groups: int = 1
+
+    def take(self, t: torch.Tensor, j: int, f: int) -> torch.Tensor:
+        part = t.shape[self.dim] // self.groups
+        blk = part // f
+        return torch.cat([t.narrow(self.dim, g * part + j * blk, blk)
+                          for g in range(self.groups)], dim=self.dim)
+
+    def join(self, blocks: list) -> torch.Tensor:
+        """The inverse of take over every shard's block."""
+        per = [b.chunk(self.groups, dim=self.dim) for b in blocks]
+        return torch.cat([p[g] for g in range(self.groups) for p in per],
+                         dim=self.dim)
+
+
+def embedder_shardings(mesh, model: Encoder) -> dict:
+    """Tensor parallelism over the mesh's 'feature' axis: parameter name ->
+    its Split, or None (replicated).  fc1 splits by output columns (its
+    bias with it) and fc2 by input rows; attn.qkv by heads within each of
+    its three thirds (its bias with it) and attn.out by input rows; every
+    other parameter is replicated.  The batch splits over 'data'."""
+    f = mesh.shape["feature"]
+    cfg = model.cfg
+    if cfg.heads % f or cfg.mlp_dim % f:
+        raise ValueError(f"heads {cfg.heads} and mlp_dim {cfg.mlp_dim} must "
+                         f"split over {f} feature shards")
+    rules = {"fc1.weight": Split(0), "fc1.bias": Split(0),
+             "fc2.weight": Split(1), "attn.qkv.weight": Split(0, 3),
+             "attn.qkv.bias": Split(0, 3), "attn.out.weight": Split(1)}
+    out = {}
+    for name, _ in model.named_parameters():
+        tail = name.split(".", 2)[-1] if name.startswith("blocks.") else ""
+        out[name] = rules.get(tail)
+    return out
+
+
+class ShardedEncoder:
+    """An Encoder's f32 parameters on a (data, feature) mesh, one replica
+    per data row: device [i, j] holds the feature-j blocks of the split
+    parameters (embedder_shardings), and each data row's first device the
+    replicated ones.  forward(i, ...) runs data row i's shard of a batch;
+    the partial outputs of the split layers are summed on that row's first
+    device, the bias added after the sum."""
+
+    def __init__(self, mesh, model: Encoder):
+        self.mesh, self.cfg = mesh, model.cfg
+        self.splits = embedder_shardings(mesh, model)
+        data, f = mesh.shape["data"], mesh.shape["feature"]
+        # params[i][j]: name -> leaf tensor on devices[i, j]
+        self.params = [[{} for _ in range(f)] for _ in range(data)]
+        for name, p in model.named_parameters():
+            t = p.detach().float()
+            sp = self.splits[name]
+            for i in range(data):
+                for j in range(1 if sp is None else f):
+                    blk = t if sp is None else sp.take(t, j, f)
+                    self.params[i][j][name] = blk.to(
+                        mesh.devices[i, j], copy=True).requires_grad_()
+
+    def replicas(self, name: str) -> list:
+        """[block j][data row i] leaves of one parameter."""
+        f = 1 if self.splits[name] is None else self.mesh.shape["feature"]
+        return [[row[j][name] for row in self.params] for j in range(f)]
+
+    def state_dict(self) -> dict:
+        """The full f32 parameters (data row 0's replica) on the CPU."""
+        out = {}
+        for name, sp in self.splits.items():
+            blocks = [r[0].detach().cpu() for r in self.replicas(name)]
+            out[name] = blocks[0] if sp is None else sp.join(blocks)
+        return out
+
+    def forward(self, i: int, ids, mask):
+        """Embeddings (B_i, hidden) of data row i's shard of the batch,
+        ids and mask on the row's first device."""
+        from ..parallel.mesh import sum_on
+
+        cfg, dt = self.cfg, self.cfg.torch_dtype
+        devs = list(self.mesh.devices[i])
+        shards = self.params[i]
+        rep = shards[0]
+        heads = cfg.heads // len(devs)
+        scale = _attention_scale(cfg)
+
+        def ln(x, name):
+            return _layer_norm(x, rep[name + ".weight"], rep[name + ".bias"],
+                               cfg.ln_eps)
+
+        def attn(x, keep, pre):
+            parts = [_dense(_attend(
+                _dense(x.to(d), p[pre + "qkv.weight"], p[pre + "qkv.bias"],
+                       dt), keep.to(d), heads, scale, dt),
+                p[pre + "out.weight"], None, dt)
+                for d, p in zip(devs, shards)]
+            return sum_on(parts, devs[0]) + rep[pre + "out.bias"].to(dt)
+
+        def mlp(x, pre, approximate):
+            parts = [_dense(F.gelu(_dense(
+                x.to(d), p[pre + "fc1.weight"], p[pre + "fc1.bias"], dt),
+                approximate=approximate), p[pre + "fc2.weight"], None, dt)
+                for d, p in zip(devs, shards)]
+            return sum_on(parts, devs[0]) + rep[pre + "fc2.bias"].to(dt)
+
+        x = F.embedding(ids, rep["tok.weight"]).to(dt) + \
+            rep["pos.weight"][:ids.shape[1]].to(dt)
+        if cfg.arch == "bert":
+            x = ln(x + rep["typ.weight"][0].to(dt), "emb_ln").to(dt)
+        keep = (mask > 0)[:, None, None, :]
+        for b in range(cfg.layers):
+            pre = f"blocks.{b}."
+            if cfg.arch == "bert":
+                x = ln(x + attn(x, keep, pre + "attn."), pre + "ln0")
+                x = ln(x + mlp(x, pre, "none"), pre + "ln1")
+            else:
+                x = x + attn(ln(x, pre + "ln0"), keep, pre + "attn.")
+                x = x + mlp(ln(x, pre + "ln1"), pre, "tanh")
+        if cfg.arch != "bert":
+            x = ln(x, "final_ln")
+        return _pool(x, mask)
+
+
+def train_step_sharded(mesh, model: ShardedEncoder, ids_a, mask_a, ids_b,
+                       mask_b, lr: float = 1e-4,
+                       temperature: float = 0.05) -> torch.Tensor:
+    """train_step on a mesh (DP x TP): the batch splits over 'data', each
+    data row runs its shard through its replica (ShardedEncoder.forward),
+    and every row's embeddings are gathered onto the lead device before
+    contrastive_loss, so the in-batch negatives are the global batch's.
+    Autograd carries the backward across devices; each parameter's
+    gradient is summed over its data-row replicas, and the plain SGD step
+    p - lr * g is applied to every replica in place, so the parameters keep
+    their splits and the replicas stay equal.  Forward and backward run
+    with TF32 off; -> the loss before the step (on the lead device)."""
+    if model.mesh is not mesh:
+        raise ValueError("the ShardedEncoder was built on another mesh")
+    data = mesh.shape["data"]
+    ids_a, mask_a, ids_b, mask_b = (
+        torch.as_tensor(x).to(dtype) for x, dtype in (
+            (ids_a, torch.int64), (mask_a, torch.float32),
+            (ids_b, torch.int64), (mask_b, torch.float32)))
+    if ids_a.shape[0] % data:
+        raise ValueError(f"batch {ids_a.shape[0]} does not split over "
+                         f"{data} data shards")
+    b = ids_a.shape[0] // data
+    lead = mesh.lead
+    with full_f32():
+        z = {"a": [], "b": []}
+        for i, dev in enumerate(mesh.row_devices()):
+            rows = slice(i * b, (i + 1) * b)
+            for side, ids, mask in (("a", ids_a, mask_a),
+                                    ("b", ids_b, mask_b)):
+                z[side].append(model.forward(
+                    i, ids[rows].to(dev), mask[rows].to(dev)).to(lead))
+        loss = _info_nce(torch.cat(z["a"]), torch.cat(z["b"]), temperature)
+        names = list(model.splits)
+        leaves = [p for n in names for blk in model.replicas(n) for p in blk]
+        grads = iter(torch.autograd.grad(loss, leaves))
+    from ..parallel.mesh import sum_on
+    with torch.no_grad():
+        for n in names:
+            for blk in model.replicas(n):
+                g = sum_on([next(grads) for _ in blk], blk[0].device)
+                step = lr * g
+                for p in blk:
+                    p.sub_(step.to(p.device))
     return loss.detach()

@@ -120,8 +120,15 @@ def _surrogate_plain(qx, qn2, qsum, codes, norms, valid, *, bits: int,
     c = dist_ops.decode_codes(codes, bits, dims).to(dtype)
     with dist_ops.full_f32():
         raw = qx @ c.T
-    dots = scale * raw + offset * qsum
-    nv = norms.to(dtype)[None, :]
+    return surrogate(qn2, scale * raw + offset * qsum, norms.to(dtype),
+                     valid, metric)
+
+
+def surrogate(qn2, dots, norms, valid, metric: str):
+    """The surface's epilogue: (Q, B) true dots -> the surrogate (squared
+    euclidean, or (1 - cos)/2 through rsqrt), invalid rows +inf; qn2 is
+    (Q, 1)."""
+    nv = norms[None, :]
     if metric == "euclidean":
         s = (qn2 - 2.0 * dots + nv).clamp_min(0.0)
     else:
@@ -563,15 +570,15 @@ def score_surface(queries, codes, norms, valid, *, bits: int, metric: str,
 # Select and rerank
 # ---------------------------------------------------------------------------
 
-def _dots_to_dist_surr(queries, dots, cnorms, cvalid, metric):
-    """Metric epilogue of the rerank: (Q, C) dots -> (dist, surrogate),
-    invalid rows +inf, zero vectors at the reference distance (cosine 1.0)."""
+def dist_surr(qn2, dots, cnorms, cvalid, metric):
+    """Metric epilogue of the rerank: (Q, C) dots and the queries' (Q, 1)
+    squared norms -> (dist, surrogate), invalid rows +inf, zero vectors at
+    the reference distance (cosine 1.0)."""
     if metric == "euclidean":
-        qn = queries.square().sum(dim=-1, keepdim=True)
-        surr = (qn - 2.0 * dots + cnorms).clamp_min(0.0)
+        surr = (qn2 - 2.0 * dots + cnorms).clamp_min(0.0)
         dist = surr.sqrt()
     else:
-        qn = queries.square().sum(dim=-1, keepdim=True).sqrt()
+        qn = qn2.sqrt()
         vn = cnorms.sqrt()
         denom = qn * vn
         one = torch.ones_like(dots)
@@ -591,7 +598,8 @@ def _candidate_distances(queries, ccodes, cnorms, cvalid, bits, metric):
     full fp32 at every width — the candidate set is tiny next to the scan,
     and exact f32 here is what lets the flag prove the top-k."""
     dots = dist_ops.candidate_dots(queries, ccodes, bits)
-    return _dots_to_dist_surr(queries, dots, cnorms, cvalid, metric)
+    return dist_surr(queries.square().sum(dim=-1, keepdim=True), dots,
+                     cnorms, cvalid, metric)
 
 
 def gather_segments(arr, seg_idx, seg: int):
@@ -649,9 +657,25 @@ def surface_delta(qn2, norms, valid, *, metric: str, dims: int,
 def _select_and_rerank(queries, segmins, codes, norms, valid, delta, *,
                        bits: int, metric: str, k: int, seg: int, s: int,
                        with_ties: bool):
-    """Stage 2 for one chunk of queries: top segments -> contiguous gather
-    -> fp32 rerank -> top-k ordered by (distance, row), plus the
-    provable-completeness flag.
+    """Stage 2 for one chunk of queries (select_segments with the gathered
+    codes' fp32 rerank)."""
+    def rerank(seg_idx):
+        return _candidate_distances(
+            queries, gather_segments(codes, seg_idx, seg),
+            gather_segments(norms, seg_idx, seg),
+            gather_segments(valid, seg_idx, seg), bits, metric)
+
+    return select_segments(segmins, delta, rerank,
+                           qn2=queries.square().sum(dim=-1), metric=metric,
+                           k=k, seg=seg, s=s, with_ties=with_ties)
+
+
+def select_segments(segmins, delta, rerank, *, qn2, metric: str, k: int,
+                    seg: int, s: int, with_ties: bool):
+    """Top segments -> rerank -> top-k ordered by (distance, row), plus the
+    provable-completeness flag.  `rerank(seg_idx)` returns the exact
+    (dist, surrogate) of the rows of the (Q, SV) selected segments, (Q,
+    SV * seg) each; qn2 (Q,) the queries' squared norms.
 
     The flag (with_ties): kth_exact = k-th smallest EXACT segment minimum
     among the S selected; the global k-th best row is <= kth_exact, so any
@@ -659,40 +683,40 @@ def _select_and_rerank(queries, segmins, codes, norms, valid, delta, *,
     min <= kth_exact + delta.  If the (S+1)-th surface segment's exact min
     m_next satisfies m_next - delta > kth_exact + 1.1*delta, every segment
     that could hold a winner was selected.  K1's minima are f32 (no
-    storage rounding), so the reference's bf16 half-ulp factors are 0."""
-    nq = queries.shape[0]
-    nseg = norms.shape[0] // seg
+    storage rounding), so the reference's bf16 half-ulp factors are 0.
+    m_next = +inf proves it too: a segment with a valid row has a finite
+    surface minimum, so that segment and every later one hold no valid
+    row (a filter, or a mesh shard, with few valid rows left; the
+    reference's flag is 0 there and its ladder climbs to every segment)."""
+    nq, nseg = segmins.shape
+    dev = segmins.device
     full = s >= nseg  # every segment gathered: complete by construction
     sv = s if (full or not with_ties) else s + 1
     if full:
-        seg_idx = torch.arange(nseg, device=codes.device).expand(nq, nseg)
+        seg_idx = torch.arange(nseg, device=dev).expand(nq, nseg)
     else:
         seg_idx = torch.topk(segmins, sv, dim=1, largest=False,
                              sorted=True).indices              # (Qc, SV)
     rows = (seg_idx[:, :, None] * seg +
-            torch.arange(seg, device=codes.device)[None, None, :]
+            torch.arange(seg, device=dev)[None, None, :]
             ).reshape(nq, sv * seg)
-    ccodes = gather_segments(codes, seg_idx, seg)             # (Qc, C, W)
-    cnorms = gather_segments(norms, seg_idx, seg)
-    cvalid = gather_segments(valid, seg_idx, seg)
-    dist, surr = _candidate_distances(queries, ccodes, cnorms, cvalid, bits,
-                                      metric)
+    dist, surr = rerank(seg_idx)
     kk = min(k, dist.shape[1])
     d_out, r_out = dist_ops.sort_topk(dist, rows, kk)
     if not with_ties:
         return d_out, r_out
     if full:
         return d_out, r_out, torch.ones((nq,), dtype=torch.int32,
-                                        device=codes.device)
+                                        device=dev)
     segsurr = surr.reshape(nq, sv, seg).amin(dim=-1)          # (Qc, SV)
     kth_exact = torch.topk(segsurr[:, :s], min(k, s), dim=1, largest=False,
                            sorted=True).values[:, -1]
     m_next = segsurr[:, s]
-    ok = ((m_next - delta) > (kth_exact + 1.1 * delta)).to(torch.int32)
+    ok = (((m_next - delta) > (kth_exact + 1.1 * delta)) |
+          torch.isinf(m_next)).to(torch.int32)
     if metric != "euclidean":
         # a zero cosine query scores every row at exactly 1.0: any k rows
         # are the true top-k
-        qn2 = queries.square().sum(dim=-1)
         ok = torch.where(qn2 > 0.0, ok, torch.ones_like(ok))
     return d_out, r_out, ok
 

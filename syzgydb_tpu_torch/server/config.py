@@ -32,10 +32,9 @@ DEFAULTS = {
     # device, from embedder_checkpoint when set, else random weights.
     "embedder": "ollama",
     "embedder_checkpoint": "",
-    # "auto" = shard every collection over all visible devices; "off" =
-    # single device.  Auto is a no-op on one device; on two or more CUDA
-    # devices make_server raises NotImplementedError until multi-GPU
-    # placement is ported (ROADMAP.md Queue 1, item 4).
+    # "auto" = shard every collection over all visible CUDA devices (a
+    # data-axis mesh, Collection.use_mesh); "off" = single device.  Auto is
+    # a no-op on fewer than two devices.
     "use_mesh": "off",
     # max coalescing window (ms) for concurrent REST searches — one batched
     # device dispatch answers the whole group. A lone query dispatches after

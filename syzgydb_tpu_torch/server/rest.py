@@ -26,7 +26,9 @@ The endpoints, JSON, status codes and response framing are the JAX
 package's (``syzgydb_tpu/server/rest.py``).  The server's device is resolved
 once, at construction: CUDA unless the caller passes ``device="cpu"``, and a
 server asked for CUDA on a host without a card raises before it opens any
-collection.  Every collection it creates or reopens lives on that device.
+collection.  Every collection it creates or reopens lives on that device,
+or, under use_mesh=auto with two or more CUDA devices, is sharded over a
+mesh of them (Collection.use_mesh).
 """
 
 from __future__ import annotations
@@ -71,6 +73,9 @@ class Server:
         # concurrent single-query searches coalesce into one device batch
         self.batcher = SearchBatcher(
             window_s=config.global_config.search_batch_ms / 1000.0)
+        # set by make_server when use_mesh=auto finds a multi-device mesh;
+        # newly created collections shard onto it too
+        self.mesh = None
 
     def collection_file(self, name: str) -> str:
         return os.path.join(self.data_folder, name + ".dat")
@@ -328,6 +333,8 @@ class _Handler(BaseHTTPRequestHandler):
                     self.srv.collections.pop(name, None)
                 return self._error(
                     f"Failed to create collection: {exc}", 500)
+            if self.srv.mesh is not None:
+                coll.use_mesh(self.srv.mesh)
             with self.srv.mutex:
                 self.srv.collections[name] = coll
             return self._respond(201, {
@@ -604,16 +611,20 @@ class _Handler(BaseHTTPRequestHandler):
             self._respond(200, f.read(), content_type=ctype)
 
 
-def _server_mesh() -> None:
-    """use_mesh=auto: a no-op on fewer than two CUDA devices; on two or more
-    it raises, as multi-device placement is not ported yet."""
+def _server_mesh(device: torch.device):
+    """use_mesh=auto: a data-axis mesh over the visible devices of the
+    server's kind (parallel.mesh.visible_devices: the CUDA devices) when
+    there are two or more, else None."""
     if config.global_config.use_mesh != "auto":
         return None
-    if torch.cuda.device_count() < 2:
+    from ..parallel import mesh as mesh_mod
+    devices = [d for d in mesh_mod.visible_devices() if d.type == device.type]
+    if len(devices) < 2:
         return None
-    raise NotImplementedError(
-        "use_mesh=auto over several CUDA devices is not ported yet "
-        "(ROADMAP.md Queue 1, item 4: Multi-GPU)")
+    mesh = mesh_mod.make_mesh(mesh_mod.MeshConfig(), devices=devices)
+    log.info("sharding collections over %d devices (data axis)",
+             len(devices))
+    return mesh
 
 
 def _device_embedder(device):
@@ -635,7 +646,7 @@ def _device_embedder(device):
 def make_server(data_folder: Optional[str] = None,
                 load_existing: bool = True, device=None) -> Server:
     srv = Server(data_folder, device=device)
-    _server_mesh()
+    srv.mesh = _server_mesh(srv.device)
     if config.global_config.embedder == "device":
         # on-device embedding instead of the Ollama HTTP service; an
         # embedder that fails to build raises here, before the seam changes
@@ -647,6 +658,8 @@ def make_server(data_folder: Optional[str] = None,
             log.info("Loading collection from file: %s", path)
             try:
                 coll = Collection(_open_existing(path), device=srv.device)
+                if srv.mesh is not None:
+                    coll.use_mesh(srv.mesh)
                 srv.collections[name] = coll
             except Exception:
                 # one bad/corrupt .dat must not take the whole server

@@ -5,9 +5,8 @@ and the port's batched results must equal its own sequential ones.
 
 The windows, margins and assertions are the JAX tests' (a 50 ms window,
 `dispatches < queries` rather than exact group sizes), so a slow host makes
-groups smaller, never a test fail.  The JAX package's mesh case has no
-counterpart: the port refuses multi-device placement
-(tests/test_torch_rest.py holds the server's refusal)."""
+groups smaller, never a test fail.  The mesh case runs the port on an
+eight-shard mesh of the CPU (parallel.mesh.make_mesh with devices)."""
 
 import json
 import threading
@@ -277,6 +276,28 @@ def test_batcher_dispatch_failure_wakes_all_members(pkg, tmp_path, rng,
     monkeypatch.undo()
     res = batcher.search(c, Args(pkg, vector=q, k=3))
     assert len(res.results) == 3
+    c.close()
+
+
+def test_search_many_under_mesh(pkg, tmp_path, rng):
+    """Batched kNN through a sharded collection matches sequential."""
+    c, _ = make_coll(pkg, tmp_path, rng, n=512)
+    if pkg.name == "jax":
+        from syzgydb_tpu.parallel import mesh as mesh_mod
+        mesh = mesh_mod.make_mesh(mesh_mod.MeshConfig(data=8, feature=1))
+    else:
+        import torch
+        from syzgydb_tpu_torch.parallel import mesh as mesh_mod
+        mesh = mesh_mod.make_mesh(mesh_mod.MeshConfig(data=8, feature=1),
+                                  [torch.device("cpu")] * 8)
+    c.use_mesh(mesh)
+    queries = rng.uniform(-1, 1, size=(5, 16))
+    for precision in ("exact", "high"):
+        batch = c.search_many([Args(pkg, vector=q, k=4, precision=precision)
+                               for q in queries])
+        for q, b in zip(queries, batch):
+            s = c.search(Args(pkg, vector=q, k=4, precision=precision))
+            assert [r.id for r in b.results] == [r.id for r in s.results]
     c.close()
 
 

@@ -261,16 +261,6 @@ def test_list_mode_sort_cached_per_generation(tmp_path):
         order[1:3], order[3:5], order, [100, 25, 3, 30, 5, 7, 9]]
 
 
-def test_unported_modes_raise(tmp_path):
-    c = tdb.Collection(tdb.CollectionOptions(
-        name=str(tmp_path / "c.dat"), dimension_count=4, quantization=8),
-        device="cpu")
-    c.add_document(1, [0.1, 0.2, 0.3, 0.4], b"{}")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        c.use_mesh(None)
-    c.close()
-
-
 def _tie_corpus():
     """tests/test_provable_high.py's adversarial corpus (300 segments whose
     minima differ at the 1e-6 level; the true winners sit at the highest

@@ -146,3 +146,21 @@ def test_fp32_products_never_ride_tf32(monkeypatch):
     idx.encode_codes_device(c, 32)
     assert seen and not any(seen)
     assert torch.backends.cuda.matmul.allow_tf32 is True
+
+
+def test_make_mesh_without_cuda_raises():
+    """make_mesh() takes every CUDA device and raises without one: it never
+    builds a CPU mesh in their place (a CPU mesh comes only from an
+    explicit devices list)."""
+    from syzgydb_tpu_torch.parallel import mesh
+
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert mesh.visible_devices() == []
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_mesh()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        mesh.make_mesh(mesh.MeshConfig(data=2))
+    cpu = mesh.make_mesh(mesh.MeshConfig(data=2),
+                         devices=[torch.device("cpu")] * 2)
+    assert cpu.shape == {"data": 2, "feature": 1}

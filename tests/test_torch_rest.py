@@ -2,9 +2,9 @@
 the JAX package's, on the CPU.
 
 The flows of tests/test_rest.py run against either package's server (the
-`pkg` fixture is parametrized over "jax" and "torch"); the port replaces
-the JAX package's use_mesh test with its refusal of use_mesh="auto" on
-several CUDA devices.  The REST text-search flows of tests/test_embedder.py
+`pkg` fixture is parametrized over "jax" and "torch"); the port's
+use_mesh="auto" runs with parallel.mesh.visible_devices patched to eight
+CPU devices.  The REST text-search flows of tests/test_embedder.py
 (embedder="device" with the shipped checkpoint and with an HF checkpoint
 directory) run on both servers too.  A scripted differential
 sequence then drives both servers on the same seeded documents, at
@@ -636,17 +636,48 @@ def test_use_mesh_auto_is_a_noop_on_one_device(tmp_path, monkeypatch):
     monkeypatch.setattr(t.config.global_config, "use_mesh", "auto")
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     srv = t.make_server(tmp_path)
-    assert srv.collections == {}
+    assert srv.collections == {} and srv.mesh is None
 
 
-def test_use_mesh_auto_on_two_devices_raises(tmp_path, monkeypatch):
+def test_use_mesh_auto_shards_collections(tmp_path, monkeypatch):
+    """tests/test_rest.py's use_mesh=auto case on the port, with
+    mesh.visible_devices patched to eight CPU devices: loaded and newly
+    created collections shard over the mesh, and a sharded search through
+    REST finds the query's own row."""
     import torch
 
+    from syzgydb_tpu_torch.parallel import mesh as mesh_mod
+
     t = Pkg("torch")
+    rng = np.random.default_rng(42)
+    c0 = t.Collection(t.db.CollectionOptions(
+        name=str(tmp_path / "pre.dat"), distance_method=t.db.COSINE,
+        dimension_count=8, quantization=8, create_and_overwrite=True,
+        index_seed=4))
+    vecs = rng.uniform(-1, 1, size=(300, 8))
+    c0.add_documents(list(range(300)), vecs, [b"{}"] * 300)
+    c0.close()
+
     monkeypatch.setattr(t.config.global_config, "use_mesh", "auto")
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 4"):
-        t.make_server(tmp_path)
+    monkeypatch.setattr(mesh_mod, "visible_devices",
+                        lambda: [torch.device("cpu")] * 8)
+    srv = t.make_server(tmp_path)
+    assert srv.mesh is not None and srv.mesh.shape["data"] == 8
+    assert srv.collections["pre"]._mesh is srv.mesh
+    httpd, base = start(srv, t.rest)
+    try:
+        status, _ = req(base, "POST", "/api/v1/collections", {
+            "name": "fresh", "vector_size": 8, "quantization": 8,
+            "distance_function": "cosine"})
+        assert status == 201
+        assert srv.collections["fresh"]._mesh is srv.mesh
+        status, out = req(base, "POST", "/api/v1/collections/pre/search", {
+            "vector": vecs[17].tolist(), "k": 3, "precision": "exact"})
+        assert status == 200 and out["results"][0]["id"] == 17
+        assert len(srv.collections["pre"]._dev["codes"]) == 8
+    finally:
+        httpd.shutdown()
+        close_all(srv)
 
 
 def _device_embedder_server(pkg, tmp_path, monkeypatch, ckpt):
