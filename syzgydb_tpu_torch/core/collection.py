@@ -62,6 +62,7 @@ from ..index import hamming
 from ..ops import distance as dist_ops
 from ..ops import quantize as qz
 from ..ops import scan
+from ..utils import spans
 from ..utils.locks import FairRLock
 from ..utils.rng import MyRandom, my_random
 from . import capacity as capacity_mod
@@ -651,8 +652,9 @@ class Collection:
 
     def search(self, args: SearchArgs) -> SearchResults:
         t0 = time.perf_counter()
-        with self._lock:
-            fin = self._search_locked(args)
+        call = spans.next_call()
+        with spans.span("dispatch", call), self._lock:
+            fin = self._search_locked(args, call)
         # device path: the result fetch runs with the lock RELEASED so
         # concurrent mutations (and other searches) proceed meanwhile
         res = fin() if callable(fin) else fin
@@ -673,35 +675,40 @@ class Collection:
         if not args_list:
             return lambda: []
         t0 = time.perf_counter()
-        a0 = args_list[0]
-        p0 = a0.precision or "medium"
-        for a in args_list:
-            if (a.k != a0.k or a.k <= 0 or a.radius != 0
-                    or a.vector is None or a.filter is not None
-                    or (a.precision or "medium") != p0
-                    or (a.filter_query or "") != (a0.filter_query or "")):
-                raise ValueError(
-                    "search_many requires homogeneous kNN searches (same "
-                    "k/precision/filter_query, no radius, no callable filter)")
-        qvecs = np.stack([np.asarray(a.vector, dtype=np.float64)
-                          for a in args_list])
-        if qvecs.shape[1] != self.dimension_count:
-            raise ValueError("query vector dimension mismatch")
-        b0 = qvecs.shape[0]
-        bucket = max(8, 1 << (b0 - 1).bit_length())
-        if bucket != b0:
-            # pad with COPIES of the first query, not zeros: pads ride the
-            # provable-selection flag like everyone else, and a zero cosine
-            # query's error bound is degenerate.  Copies fail exactly iff
-            # the real query fails (the margin hint counts n_real only).
-            qvecs = np.concatenate(
-                [qvecs, np.repeat(qvecs[:1], bucket - b0, axis=0)])
-        with self._lock:
-            n_records = len(self.columns)
-            if n_records == 0:
-                fin = None
-            else:
-                fin = self._knn_many_async(qvecs, a0, n_records, n_real=b0)
+        call = spans.next_call()
+        with spans.span("dispatch", call):
+            a0 = args_list[0]
+            p0 = a0.precision or "medium"
+            for a in args_list:
+                if (a.k != a0.k or a.k <= 0 or a.radius != 0
+                        or a.vector is None or a.filter is not None
+                        or (a.precision or "medium") != p0
+                        or (a.filter_query or "") != (a0.filter_query or "")):
+                    raise ValueError(
+                        "search_many requires homogeneous kNN searches (same "
+                        "k/precision/filter_query, no radius, no callable "
+                        "filter)")
+            qvecs = np.stack([np.asarray(a.vector, dtype=np.float64)
+                              for a in args_list])
+            if qvecs.shape[1] != self.dimension_count:
+                raise ValueError("query vector dimension mismatch")
+            b0 = qvecs.shape[0]
+            bucket = max(8, 1 << (b0 - 1).bit_length())
+            if bucket != b0:
+                # pad with COPIES of the first query, not zeros: pads ride
+                # the provable-selection flag like everyone else, and a zero
+                # cosine query's error bound is degenerate.  Copies fail
+                # exactly iff the real query fails (the margin hint counts
+                # n_real only).
+                qvecs = np.concatenate(
+                    [qvecs, np.repeat(qvecs[:1], bucket - b0, axis=0)])
+            with self._lock:
+                n_records = len(self.columns)
+                if n_records == 0:
+                    fin = None
+                else:
+                    fin = self._knn_many_async(qvecs, a0, n_records,
+                                               n_real=b0, call=call)
 
         def finish() -> list[SearchResults]:
             if fin is None:
@@ -732,32 +739,36 @@ class Collection:
         if not args_list:
             return []
         t0 = time.perf_counter()
-        a0 = args_list[0]
-        p0 = a0.precision or "medium"
-        for a in args_list:
-            if (a.radius <= 0 or a.vector is None or a.filter is not None
-                    or (a.precision or "medium") != p0
-                    or (a.filter_query or "") != (a0.filter_query or "")):
-                raise ValueError(
-                    "radius_many requires homogeneous radius searches "
-                    "(radius > 0, same precision/filter_query, no callable "
-                    "filter)")
-        qvecs = np.stack([np.asarray(a.vector, dtype=np.float64)
-                          for a in args_list])
-        if qvecs.shape[1] != self.dimension_count:
-            raise ValueError("query vector dimension mismatch")
-        radii = np.array([float(a.radius) for a in args_list])
-        # power-of-two bucket, as search_many: pads are copies of query 0
-        # and share its radius
-        b0 = qvecs.shape[0]
-        bucket = max(8, 1 << (b0 - 1).bit_length())
-        if bucket != b0:
-            qvecs = np.concatenate(
-                [qvecs, np.repeat(qvecs[:1], bucket - b0, axis=0)])
-            radii = np.concatenate(
-                [radii, np.repeat(radii[:1], bucket - b0)])
-        with self._lock:
-            fin = self._radius_many_async(a0, qvecs, radii, n_real=b0)
+        call = spans.next_call()
+        with spans.span("dispatch", call):
+            a0 = args_list[0]
+            p0 = a0.precision or "medium"
+            for a in args_list:
+                if (a.radius <= 0 or a.vector is None
+                        or a.filter is not None
+                        or (a.precision or "medium") != p0
+                        or (a.filter_query or "") != (a0.filter_query or "")):
+                    raise ValueError(
+                        "radius_many requires homogeneous radius searches "
+                        "(radius > 0, same precision/filter_query, no "
+                        "callable filter)")
+            qvecs = np.stack([np.asarray(a.vector, dtype=np.float64)
+                              for a in args_list])
+            if qvecs.shape[1] != self.dimension_count:
+                raise ValueError("query vector dimension mismatch")
+            radii = np.array([float(a.radius) for a in args_list])
+            # power-of-two bucket, as search_many: pads are copies of query
+            # 0 and share its radius
+            b0 = qvecs.shape[0]
+            bucket = max(8, 1 << (b0 - 1).bit_length())
+            if bucket != b0:
+                qvecs = np.concatenate(
+                    [qvecs, np.repeat(qvecs[:1], bucket - b0, axis=0)])
+                radii = np.concatenate(
+                    [radii, np.repeat(radii[:1], bucket - b0)])
+            with self._lock:
+                fin = self._radius_many_async(a0, qvecs, radii, n_real=b0,
+                                              call=call)
         out = fin() if callable(fin) else fin
         dt = (time.perf_counter() - t0) * 1000.0
         for r in out:
@@ -765,13 +776,13 @@ class Collection:
         return out
 
     def _radius_many_async(self, args: SearchArgs, qvecs: np.ndarray,
-                           radii: np.ndarray, n_real: int):
+                           radii: np.ndarray, n_real: int, call: int):
         """(Q, D)-batched radius search, split into a DISPATCH phase
         (caller holds the lock) and a finish() callable that fetches with
         the lock RELEASED; escalation rounds re-acquire it and re-read the
         device state and the filter mask.  Returns the first n_real
         queries' results directly for the host path, else the finish
-        callable."""
+        callable.  `call` identifies the call's spans (utils/spans.py)."""
         n_records = len(self.columns)
         if n_records == 0:
             return [SearchResults([], 0.0) for _ in range(n_real)]
@@ -809,17 +820,20 @@ class Collection:
             def finish_ann() -> list[SearchResults]:
                 bb, d, r, c = b, dist, rows, nsc
                 while True:
-                    dist_np, rows_np, cnt = self._fetch_results(d, r, c)
+                    dist_np, rows_np, cnt = self._fetch_results(d, r, c,
+                                                                call=call)
                     if bb >= cap or all(
                             self._radius_done(dist_np[i], bb, radii[i], 0.0)
                             for i in range(n_real)):
                         break
                     bb = min(bb * 4, cap)
-                    with self._lock:  # escalation re-dispatch
+                    # escalation re-dispatch
+                    with spans.span("escalate", call), self._lock:
                         dev2 = self._device_state()
                         d, r, c = ann_dispatch(dev2, cur_valid(dev2), bb)
                 searched = min(bb, n_passing)
-                with self._lock:  # result assembly reads host columns
+                # result assembly reads host columns
+                with spans.span("results", call), self._lock:
                     return [self._radius_results_np(
                         dist_np[i], rows_np[i], float(radii[i]),
                         int(cnt[i]) if cnt is not None else searched,
@@ -843,13 +857,14 @@ class Collection:
             dist, rows, ties, s_used, nseg = dispatched
             first_fail = None
             while True:
-                dist_np, rows_np, tie_np = self._fetch_results(dist, rows,
-                                                               ties)
+                dist_np, rows_np, tie_np = self._fetch_results(
+                    dist, rows, ties, call=call)
                 if s_used < nseg:
                     if first_fail is None:
                         first_fail = 1.0 - float(tie_np[:n_real].mean())
                     if int(tie_np.min()) == 0:
-                        with self._lock:  # margin escalation re-dispatch
+                        # margin escalation re-dispatch
+                        with spans.span("escalate", call), self._lock:
                             tm = self._escalate_margin(tm)
                             dev2 = self._device_state()
                             dist, rows, ties, s_used, nseg = \
@@ -865,14 +880,16 @@ class Collection:
                         for i in range(n_real)):
                     break
                 kk = min(kk * 4, n_passing)
-                with self._lock:  # k escalation re-dispatch
+                # k escalation re-dispatch
+                with spans.span("escalate", call), self._lock:
                     dev2 = self._device_state()
                     dist, rows, ties, s_used, nseg = \
                         self._exact_topk_device(queries, dev2,
                                                 cur_valid(dev2), kk,
                                                 tie_margin=tm)
             out = []
-            with self._lock:  # result assembly reads host columns
+            # result assembly reads host columns
+            with spans.span("results", call), self._lock:
                 for i in range(n_real):
                     if exact:
                         rows_i = rows_np[i][np.isfinite(dist_np[i])]
@@ -907,9 +924,10 @@ class Collection:
                    for i in keep]
         return SearchResults(results, self._pct(searched, n_records))
 
-    def _search_locked(self, args: SearchArgs):
+    def _search_locked(self, args: SearchArgs, call: int):
         """Dispatch one search under the caller's lock: device kNN returns a
-        finish() CALLABLE; list mode and host scans return SearchResults."""
+        finish() CALLABLE; list mode and host scans return SearchResults.
+        `call` identifies the call's spans (utils/spans.py)."""
         n_records = len(self.columns)
         if args.k == 0 and args.radius == 0:
             return self._list_mode(args, n_records)
@@ -921,8 +939,8 @@ class Collection:
         if n_records == 0:
             return SearchResults([], 0.0)
         if args.radius > 0:
-            return self._radius_search(args, qvec)
-        fin = self._knn_many_async(qvec[None, :], args, n_records)
+            return self._radius_search(args, qvec, call)
+        fin = self._knn_many_async(qvec[None, :], args, n_records, call=call)
         return lambda: fin()[0]
 
     def _small(self) -> bool:
@@ -1048,13 +1066,14 @@ class Collection:
             self._mesh.row_devices())]
 
     def _knn_many_async(self, qvecs: np.ndarray, args: SearchArgs,
-                        n_records: int, n_real: Optional[int] = None
-                        ) -> Callable[[], list[SearchResults]]:
+                        n_records: int, n_real: Optional[int] = None, *,
+                        call: int) -> Callable[[], list[SearchResults]]:
         """kNN for a (Q, D) batch sharing precision/filter, split into a
         DISPATCH phase (now, caller holds the lock) and a returned finish()
         that fetches with the lock RELEASED.  n_real = the number of REAL
         queries when the batch is bucket-padded with copies of qvecs[0]:
-        the margin hint's failure fraction counts real queries only."""
+        the margin hint's failure fraction counts real queries only.
+        `call` identifies the call's spans (utils/spans.py)."""
         precision = args.precision or "medium"
         nq = qvecs.shape[0]
         n_real = nq if n_real is None else n_real
@@ -1089,8 +1108,10 @@ class Collection:
                                              dev, valid, budget, k)
 
             def finish_ann() -> list[SearchResults]:
-                dist_np, rows_np, cnt = self._fetch_results(dist, rows, nsc)
-                with self._lock:  # result assembly reads host columns
+                dist_np, rows_np, cnt = self._fetch_results(dist, rows, nsc,
+                                                            call=call)
+                # result assembly reads host columns
+                with spans.span("results", call), self._lock:
                     return self._knn_results_np(dist_np, rows_np, k,
                                                 searched, n_records, cnt)
 
@@ -1107,7 +1128,7 @@ class Collection:
             # re-dispatches: stays synchronous under the caller's lock
             out = self._exact_knn_f64(qvecs, queries, dev, valid, k,
                                       n_passing, searched, n_records,
-                                      n_real=n_real)
+                                      n_real=n_real, call=call)
             return lambda: out
         tmargin = self._seg_margin_hint
         dist, rows, ties, s_used, nseg = self._exact_topk_device(
@@ -1118,7 +1139,8 @@ class Collection:
             su, ns, tm = s_used, nseg, tmargin
             first_fail = None
             while True:
-                dist_np, rows_np, tie_np = self._fetch_results(d, r, t)
+                dist_np, rows_np, tie_np = self._fetch_results(d, r, t,
+                                                               call=call)
                 if first_fail is None:
                     first_fail = 1.0 - float(tie_np[:n_real].mean())
                 if su >= ns or int(tie_np.min()) == 1:
@@ -1126,13 +1148,13 @@ class Collection:
                 # provable-selection escalation: some query's tie cluster
                 # exceeded the margin — re-dispatch at the next ladder rung
                 # on the CURRENT device state (re-read under the lock)
-                with self._lock:
+                with spans.span("escalate", call), self._lock:
                     tm = self._escalate_margin(tm)
                     dev2 = self._device_state()
                     d, r, t, su, ns = self._exact_topk_device(
                         queries, dev2, self._valid(dev2, args), k,
                         tie_margin=tm)
-            with self._lock:
+            with spans.span("results", call), self._lock:
                 self._note_margin(tm, first_fail, kk=k, n_real=n_real)
                 return self._knn_results_np(dist_np, rows_np, k, searched,
                                             n_records)
@@ -1193,7 +1215,8 @@ class Collection:
 
     def _exact_knn_f64(self, qvecs, queries, dev, valid, k: int,
                        n_passing: int, searched: int, n_records: int,
-                       n_real: Optional[int] = None) -> list[SearchResults]:
+                       n_real: Optional[int] = None, *,
+                       call: int) -> list[SearchResults]:
         """precision="exact" above the host-scan threshold: the device
         produces a provably complete f32 top-(k+margin) shortlist, and the
         final ranking is recomputed on the host in f64.  The margin widens
@@ -1208,7 +1231,8 @@ class Collection:
             kk = min(k + m, n_passing)
             dist, rows, ties, s_used, nseg = self._exact_topk_device(
                 queries, dev, valid, kk, tie_margin=tmargin)
-            dist_np, rows_np, tie_np = self._fetch_results(dist, rows, ties)
+            dist_np, rows_np, tie_np = self._fetch_results(dist, rows, ties,
+                                                           call=call)
             if first_fail is None:
                 first_fail = 1.0 - float(tie_np[:n_real].mean())
             if s_used < nseg and int(tie_np.min()) == 0:
@@ -1243,13 +1267,15 @@ class Collection:
         pct = self._pct(searched, n_records)
         return [SearchResults(r, pct) for r in out]
 
-    def _radius_search(self, args: SearchArgs, qvec: np.ndarray):
+    def _radius_search(self, args: SearchArgs, qvec: np.ndarray,
+                       call: int):
         """Single-query radius search: the Q=1 case of the batched
         escalation loop.  Returns SearchResults (host path) or a finish()
         callable (device paths: the fetch runs without the caller's
         lock)."""
         out = self._radius_many_async(
-            args, qvec[None, :], np.array([float(args.radius)]), n_real=1)
+            args, qvec[None, :], np.array([float(args.radius)]), n_real=1,
+            call=call)
         if callable(out):
             return lambda: out()[0]
         return out[0]
@@ -1320,11 +1346,13 @@ class Collection:
                             md if md is not None else b"", d)
 
     @staticmethod
-    def _fetch_results(dist, rows, counts=None):
-        """Device -> host copy of (dist, rows[, counts])."""
-        cnt = None if counts is None else counts.cpu().numpy()
-        return (dist.to(torch.float32).cpu().numpy(), rows.cpu().numpy(),
-                cnt)
+    def _fetch_results(dist, rows, counts=None, *, call: int):
+        """Device -> host copy of (dist, rows[, counts]), with the wait for
+        the device work they read: call `call`'s "fetch" span."""
+        with spans.span("fetch", call):
+            cnt = None if counts is None else counts.cpu().numpy()
+            return (dist.to(torch.float32).cpu().numpy(), rows.cpu().numpy(),
+                    cnt)
 
     def _knn_results_np(self, dist, rows, k: int, searched: int,
                         n_records: int, cnt=None) -> list[SearchResults]:
