@@ -919,9 +919,10 @@ class Collection:
                            radius: float, searched: int,
                            n_records: int) -> SearchResults:
         """Assemble one query's radius results from fetched arrays."""
-        keep = np.flatnonzero(np.isfinite(dist) & (dist <= radius))
-        results = [self._mk_result(int(rows[i]), float(dist[i]))
-                   for i in keep]
+        keep = np.isfinite(dist) & (dist <= radius)
+        mk = self._mk_result
+        results = [mk(r, d) for r, d in zip(rows[keep].tolist(),
+                                            dist[keep].tolist())]
         return SearchResults(results, self._pct(searched, n_records))
 
     def _search_locked(self, args: SearchArgs, call: int):
@@ -1342,7 +1343,7 @@ class Collection:
 
     def _mk_result(self, row: int, d: float) -> SearchResult:
         md = self.columns.metadata[row]
-        return SearchResult(int(self.columns.ids[row]),
+        return SearchResult(self.columns.ids.item(row),
                             md if md is not None else b"", d)
 
     @staticmethod
@@ -1356,11 +1357,32 @@ class Collection:
 
     def _knn_results_np(self, dist, rows, k: int, searched: int,
                         n_records: int, cnt=None) -> list[SearchResults]:
-        return [SearchResults(
-            [self._mk_result(int(r), float(d))
-             for d, r in zip(dist[qi][:k], rows[qi][:k]) if np.isfinite(d)],
-            self._pct(int(cnt[qi]) if cnt is not None else searched,
-                      n_records)) for qi in range(dist.shape[0])]
+        """Assemble each query's first k finite (row, distance) pairs.
+
+        Each column becomes Python objects by one flat tolist() a call, not
+        one scalar at a time; a nested tolist() would add a tracked list per
+        query, which the collector pays for."""
+        dist, rows = dist[:, :k], rows[:, :k]
+        nq, kk = dist.shape
+        dl = dist.ravel().tolist()
+        rl = rows.ravel().tolist()
+        fin = np.isfinite(dist)
+        fl = None if fin.all() else fin.ravel().tolist()
+        if cnt is None:
+            pcts = itertools.repeat(self._pct(searched, n_records), nq)
+        else:
+            pcts = [self._pct(c, n_records) for c in cnt.tolist()]
+        mk = self._mk_result
+        out = []
+        for qi, pct in zip(range(nq), pcts):
+            a, b = qi * kk, qi * kk + kk
+            if fl is None:
+                res = [mk(r, d) for r, d in zip(rl[a:b], dl[a:b])]
+            else:
+                res = [mk(r, d) for r, d, f in zip(rl[a:b], dl[a:b], fl[a:b])
+                       if f]
+            out.append(SearchResults(res, pct))
+        return out
 
     def _sorted_doc_ids(self) -> list[int]:
         """Doc ids in lexicographic decimal-string order (the reference's
