@@ -680,6 +680,7 @@ def reset_counters() -> None:
 
     scan.launches = scan.free_seg_launches = scan.surface_launches = 0
     scan.i8_launches = scan.i8_free_seg_launches = scan.i8_surface_launches = 0
+    scan.rerank_rows = 0
     hamming_scan.launches = hamming_scan.u8_launches = 0
 
 

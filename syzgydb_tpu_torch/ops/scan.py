@@ -85,14 +85,16 @@ GATHER_BUDGET_BYTES = 1 << 30
 # segment lengths the CUDA segment-min kernel is built for
 KERNEL_SEGS = (16, 32, 64, 128)
 
-# plain-integer launch counters (reset by callers): each kernel's count of
-# launches by either route, and of those by its int8 route (8-bit codes)
+# plain-integer counters (reset by callers): each kernel's count of
+# launches by either route, of those by its int8 route (8-bit codes), and
+# the rerank's rows
 launches = 0              # K1: segment minima at DEFAULT_SEG
 i8_launches = 0
 free_seg_launches = 0     # K5/K6: segment minima at seg 16, 64 or 128
 i8_free_seg_launches = 0
 surface_launches = 0      # K4: the full surface
 i8_surface_launches = 0
+rerank_rows = 0           # candidate rows decoded and reranked
 
 # the int8 route: query slices (the S csrc/segmin_i8.cu is built for), and
 # the widest D whose int32 slice sums cannot overflow
@@ -597,6 +599,8 @@ def _candidate_distances(queries, ccodes, cnorms, cvalid, bits, metric):
     """Exact distances and surrogates of gathered candidates (Q, C, W):
     full fp32 at every width — the candidate set is tiny next to the scan,
     and exact f32 here is what lets the flag prove the top-k."""
+    global rerank_rows
+    rerank_rows += ccodes.shape[0] * ccodes.shape[1]
     dots = dist_ops.candidate_dots(queries, ccodes, bits)
     return dist_surr(queries.square().sum(dim=-1, keepdim=True), dots,
                      cnorms, cvalid, metric)
