@@ -1132,29 +1132,44 @@ class Collection:
                                       n_real=n_real, call=call)
             return lambda: out
         tmargin = self._seg_margin_hint
+        # the mutation generation the batch's answers come from
+        version = self.columns.version
         dist, rows, ties, s_used, nseg = self._exact_topk_device(
             queries, dev, valid, k, tie_margin=tmargin)
 
         def finish_escalate() -> list[SearchResults]:
             d, r, t = dist, rows, ties
-            su, ns, tm = s_used, nseg, tmargin
+            su, ns, tm, ver = s_used, nseg, tmargin, version
+            sel = None  # the batch rows the latest round answered; None: all
             first_fail = None
             while True:
-                dist_np, rows_np, tie_np = self._fetch_results(d, r, t,
-                                                               call=call)
+                got = self._fetch_results(d, r, t, call=call)
+                if sel is None:
+                    dist_np, rows_np, tie_np = got
+                else:
+                    dist_np[sel], rows_np[sel], tie_np[sel] = got
                 if first_fail is None:
                     first_fail = 1.0 - float(tie_np[:n_real].mean())
                 if su >= ns or int(tie_np.min()) == 1:
                     break
-                # provable-selection escalation: some query's tie cluster
-                # exceeded the margin — re-dispatch at the next ladder rung
-                # on the CURRENT device state (re-read under the lock)
+                # provable-selection escalation: the queries whose tie
+                # cluster exceeded the margin are re-dispatched at the next
+                # ladder rung on the CURRENT device state (re-read under the
+                # lock); the others keep their proven answers.  After a
+                # write since the batch's state, the whole batch goes again,
+                # so that all its answers come from one state.
                 with spans.span("escalate", call), self._lock:
                     tm = self._escalate_margin(tm)
                     dev2 = self._device_state()
+                    sel = np.flatnonzero(tie_np == 0)
+                    if len(sel) == nq or self.columns.version != ver:
+                        sel, q, ver = None, queries, self.columns.version
+                    else:
+                        q = queries.index_select(0, torch.from_numpy(sel).to(
+                            queries.device))
+                    spans.add("escalate_q", q.shape[0])
                     d, r, t, su, ns = self._exact_topk_device(
-                        queries, dev2, self._valid(dev2, args), k,
-                        tie_margin=tm)
+                        q, dev2, self._valid(dev2, args), k, tie_margin=tm)
             with spans.span("results", call), self._lock:
                 self._note_margin(tm, first_fail, kk=k, n_real=n_real)
                 return self._knn_results_np(dist_np, rows_np, k, searched,

@@ -22,6 +22,11 @@ The stages (core/collection.py):
             kernel falls in the next fetch
   results   the margin hint and the assembly of the results, lock included
 
+Beside the spans' counters:
+  escalate_q  the queries that escalate rounds re-dispatched (a kNN round
+              re-dispatches only the batch's failing queries, so
+              escalate_q / escalate_n is the queries a round)
+
 The counters are plain integers, as ops/scan.py's launch counters: read
 them by module attribute, and difference two readings.  Updates take a
 lock, only while on.
@@ -44,6 +49,7 @@ dispatch_ns = dispatch_n = 0
 fetch_ns = fetch_n = 0
 escalate_ns = escalate_n = 0
 results_ns = results_n = 0
+escalate_q = 0
 
 _calls = itertools.count(1)
 _lock = threading.Lock()
@@ -63,6 +69,14 @@ def span(name: str, call: int):
     if not _recording():
         return _OFF
     return _recorded(name, call)
+
+
+def add(counter: str, n: int) -> None:
+    """Add n to the counter `counter` while a profiler records in this
+    thread."""
+    if _recording():
+        with _lock:
+            globals()[counter] += n
 
 
 @contextlib.contextmanager
