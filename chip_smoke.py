@@ -931,7 +931,7 @@ def main_path(dev, report: dict):
     u8, f32 = ops["u8"]
     if not torch.equal(u8.to(torch.float32), f32):
         raise AssertionError("K3's counts differ from K2's on the main state")
-    report["ops"] = {"seg64_proven_margin": m64 or scan.default_tie_margin()}
+    report["ops"] = {"seg64_proven_margin": m64 or scan.DEFAULT_TIE_MARGIN}
 
     # the completeness flags at the margin the collection settled on, and
     # up the escalation ladder until every flag is 1 (the loop Collection
@@ -945,7 +945,7 @@ def main_path(dev, report: dict):
     report["flags"] = {"default_margin_ok_frac": float(ok6.float().mean()),
                        "hint_margin": coll._seg_margin_hint,
                        "first_rung_ok_frac": first_ok,
-                       "proven_margin": margin or scan.default_tie_margin(),
+                       "proven_margin": margin or scan.DEFAULT_TIE_MARGIN,
                        "all_ok": True}
     log(f"completeness flags: {report['flags']}")
 
@@ -1980,7 +1980,7 @@ def e2e_64bit(rows: np.ndarray, queries: np.ndarray, dev,
             raise AssertionError("64-bit phase: proven rows differ from "
                                  "high's results")
         out["flags"] = {"first_rung_ok_frac": first, "all_ok": True,
-                        "proven_margin": margin or scan.default_tie_margin()}
+                        "proven_margin": margin or scan.DEFAULT_TIE_MARGIN}
 
         # the fp32 kernels against their plain version in f64 on the
         # collection's own state at the batcher's group sizes (tiles 16, 32

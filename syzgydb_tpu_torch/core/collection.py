@@ -688,20 +688,7 @@ class Collection:
                         "search_many requires homogeneous kNN searches (same "
                         "k/precision/filter_query, no radius, no callable "
                         "filter)")
-            qvecs = np.stack([np.asarray(a.vector, dtype=np.float64)
-                              for a in args_list])
-            if qvecs.shape[1] != self.dimension_count:
-                raise ValueError("query vector dimension mismatch")
-            b0 = qvecs.shape[0]
-            bucket = max(8, 1 << (b0 - 1).bit_length())
-            if bucket != b0:
-                # pad with COPIES of the first query, not zeros: pads ride
-                # the provable-selection flag like everyone else, and a zero
-                # cosine query's error bound is degenerate.  Copies fail
-                # exactly iff the real query fails (the margin hint counts
-                # n_real only).
-                qvecs = np.concatenate(
-                    [qvecs, np.repeat(qvecs[:1], bucket - b0, axis=0)])
+            qvecs, b0 = self._batch_queries(args_list)
             with self._lock:
                 n_records = len(self.columns)
                 if n_records == 0:
@@ -752,20 +739,11 @@ class Collection:
                         "radius_many requires homogeneous radius searches "
                         "(radius > 0, same precision/filter_query, no "
                         "callable filter)")
-            qvecs = np.stack([np.asarray(a.vector, dtype=np.float64)
-                              for a in args_list])
-            if qvecs.shape[1] != self.dimension_count:
-                raise ValueError("query vector dimension mismatch")
+            qvecs, b0 = self._batch_queries(args_list)
+            # the pads, copies of query 0, share its radius
             radii = np.array([float(a.radius) for a in args_list])
-            # power-of-two bucket, as search_many: pads are copies of query
-            # 0 and share its radius
-            b0 = qvecs.shape[0]
-            bucket = max(8, 1 << (b0 - 1).bit_length())
-            if bucket != b0:
-                qvecs = np.concatenate(
-                    [qvecs, np.repeat(qvecs[:1], bucket - b0, axis=0)])
-                radii = np.concatenate(
-                    [radii, np.repeat(radii[:1], bucket - b0)])
+            radii = np.concatenate(
+                [radii, np.full(len(qvecs) - b0, radii[0])])
             with self._lock:
                 fin = self._radius_many_async(a0, qvecs, radii, n_real=b0,
                                               call=call)
@@ -774,6 +752,26 @@ class Collection:
         for r in out:
             r.search_time_ms = dt
         return out
+
+    def _batch_queries(self, args_list: Sequence[SearchArgs]
+                       ) -> tuple[np.ndarray, int]:
+        """The members' vectors as one float64 batch padded to a
+        power-of-two bucket (at least 8), and the number of real queries.
+
+        The pads are COPIES of the first query, not zeros: pads ride the
+        provable-selection flag like everyone else, and a zero cosine
+        query's error bound is degenerate.  Copies fail exactly iff the
+        real query fails (the margin hint counts real queries only)."""
+        qvecs = np.stack([np.asarray(a.vector, dtype=np.float64)
+                          for a in args_list])
+        if qvecs.shape[1] != self.dimension_count:
+            raise ValueError("query vector dimension mismatch")
+        b0 = qvecs.shape[0]
+        bucket = max(8, 1 << (b0 - 1).bit_length())
+        if bucket != b0:
+            qvecs = np.concatenate(
+                [qvecs, np.repeat(qvecs[:1], bucket - b0, axis=0)])
+        return qvecs, b0
 
     def _radius_many_async(self, args: SearchArgs, qvecs: np.ndarray,
                            radii: np.ndarray, n_real: int, call: int):
@@ -797,12 +795,10 @@ class Collection:
                                            n_passing, n_records)
                     for i in range(n_real)]
 
+        nq = qvecs.shape[0]
         queries = self._queries(qvecs)
         dev = self._device_state()
         valid = self._valid(dev, args, mask)
-
-        def cur_valid(dev_now):
-            return self._valid(dev_now, args)
 
         if use_index:
             budget = min(max(self.options.search_budget,
@@ -829,8 +825,10 @@ class Collection:
                     bb = min(bb * 4, cap)
                     # escalation re-dispatch
                     with spans.span("escalate", call), self._lock:
+                        spans.add("escalate_q", nq)
                         dev2 = self._device_state()
-                        d, r, c = ann_dispatch(dev2, cur_valid(dev2), bb)
+                        d, r, c = ann_dispatch(dev2, self._valid(dev2, args),
+                                               bb)
                 searched = min(bb, n_passing)
                 # result assembly reads host columns
                 with spans.span("results", call), self._lock:
@@ -841,40 +839,27 @@ class Collection:
 
             return self._leased_finish(finish_ann)
 
-        # exhaustive: shared top-kk with escalation (one dispatch per round
-        # serves the whole group)
+        # exhaustive: shared top-kk with k escalation (one dispatch per
+        # round serves the whole group), each kk proven by the margin ladder
         searched = n_passing
         exact = precision == "exact"
         eps = self._F32_EPS_REL * np.maximum(1.0, radii) if exact \
             else np.zeros_like(radii)
         kk0 = min(1024, n_passing)
         tmargin0 = self._seg_margin_hint
-        dispatched = self._exact_topk_device(queries, dev, valid, kk0,
-                                             tie_margin=tmargin0)
+        version0 = self.columns.version
+        dispatched0 = self._exact_topk_device(queries, dev, valid, kk0,
+                                              tie_margin=tmargin0)
 
         def finish_exh() -> list[SearchResults]:
-            kk, tm = kk0, tmargin0
-            dist, rows, ties, s_used, nseg = dispatched
+            kk, tm, ver, dispatched = kk0, tmargin0, version0, dispatched0
             first_fail = None
             while True:
-                dist_np, rows_np, tie_np = self._fetch_results(
-                    dist, rows, ties, call=call)
-                if s_used < nseg:
-                    if first_fail is None:
-                        first_fail = 1.0 - float(tie_np[:n_real].mean())
-                    if int(tie_np.min()) == 0:
-                        # margin escalation re-dispatch
-                        with spans.span("escalate", call), self._lock:
-                            tm = self._escalate_margin(tm)
-                            dev2 = self._device_state()
-                            dist, rows, ties, s_used, nseg = \
-                                self._exact_topk_device(
-                                    queries, dev2, cur_valid(dev2), kk,
-                                    tie_margin=tm)
-                        continue
-                    with self._lock:
-                        self._note_margin(tm, first_fail, kk=kk,
-                                          n_real=n_real)
+                dist_np, rows_np, tm, fail = self._proven_topk(
+                    queries, args, kk, dispatched, tm, ver, n_real, call=call)
+                first_fail = fail if first_fail is None else first_fail
+                with self._lock:
+                    self._note_margin(tm, first_fail, kk=kk, n_real=n_real)
                 if kk >= n_passing or all(
                         self._radius_done(dist_np[i], kk, radii[i], eps[i])
                         for i in range(n_real)):
@@ -882,11 +867,12 @@ class Collection:
                 kk = min(kk * 4, n_passing)
                 # k escalation re-dispatch
                 with spans.span("escalate", call), self._lock:
+                    spans.add("escalate_q", nq)
                     dev2 = self._device_state()
-                    dist, rows, ties, s_used, nseg = \
-                        self._exact_topk_device(queries, dev2,
-                                                cur_valid(dev2), kk,
-                                                tie_margin=tm)
+                    ver = self.columns.version
+                    dispatched = self._exact_topk_device(
+                        queries, dev2, self._valid(dev2, args), kk,
+                        tie_margin=tm)
             out = []
             # result assembly reads host columns
             with spans.span("results", call), self._lock:
@@ -920,10 +906,8 @@ class Collection:
                            n_records: int) -> SearchResults:
         """Assemble one query's radius results from fetched arrays."""
         keep = np.isfinite(dist) & (dist <= radius)
-        mk = self._mk_result
-        results = [mk(r, d) for r, d in zip(rows[keep].tolist(),
-                                            dist[keep].tolist())]
-        return SearchResults(results, self._pct(searched, n_records))
+        return self._results(rows[keep].tolist(), dist[keep].tolist(),
+                             self._pct(searched, n_records))
 
     def _search_locked(self, args: SearchArgs, call: int):
         """Dispatch one search under the caller's lock: device kNN returns a
@@ -968,7 +952,7 @@ class Collection:
         if self._mesh is None:
             n = self.columns.capacity
             fused = scan.fused_k_ok(kk, queries.shape[0])
-            margin = scan.default_tie_margin()
+            margin = scan.DEFAULT_TIE_MARGIN
         else:
             from ..parallel import search as psearch
             n = dev["n_local"]
@@ -1127,55 +1111,66 @@ class Collection:
         if precision == "exact":
             # exact mode interleaves host f64 reranks with escalation
             # re-dispatches: stays synchronous under the caller's lock
-            out = self._exact_knn_f64(qvecs, queries, dev, valid, k,
+            out = self._exact_knn_f64(qvecs, queries, args, dev, valid, k,
                                       n_passing, searched, n_records,
                                       n_real=n_real, call=call)
             return lambda: out
         tmargin = self._seg_margin_hint
         # the mutation generation the batch's answers come from
         version = self.columns.version
-        dist, rows, ties, s_used, nseg = self._exact_topk_device(
-            queries, dev, valid, k, tie_margin=tmargin)
+        dispatched = self._exact_topk_device(queries, dev, valid, k,
+                                             tie_margin=tmargin)
 
         def finish_escalate() -> list[SearchResults]:
-            d, r, t = dist, rows, ties
-            su, ns, tm, ver = s_used, nseg, tmargin, version
-            sel = None  # the batch rows the latest round answered; None: all
-            first_fail = None
-            while True:
-                got = self._fetch_results(d, r, t, call=call)
-                if sel is None:
-                    dist_np, rows_np, tie_np = got
-                else:
-                    dist_np[sel], rows_np[sel], tie_np[sel] = got
-                if first_fail is None:
-                    first_fail = 1.0 - float(tie_np[:n_real].mean())
-                if su >= ns or int(tie_np.min()) == 1:
-                    break
-                # provable-selection escalation: the queries whose tie
-                # cluster exceeded the margin are re-dispatched at the next
-                # ladder rung on the CURRENT device state (re-read under the
-                # lock); the others keep their proven answers.  After a
-                # write since the batch's state, the whole batch goes again,
-                # so that all its answers come from one state.
-                with spans.span("escalate", call), self._lock:
-                    tm = self._escalate_margin(tm)
-                    dev2 = self._device_state()
-                    sel = np.flatnonzero(tie_np == 0)
-                    if len(sel) == nq or self.columns.version != ver:
-                        sel, q, ver = None, queries, self.columns.version
-                    else:
-                        q = queries.index_select(0, torch.from_numpy(sel).to(
-                            queries.device))
-                    spans.add("escalate_q", q.shape[0])
-                    d, r, t, su, ns = self._exact_topk_device(
-                        q, dev2, self._valid(dev2, args), k, tie_margin=tm)
+            dist_np, rows_np, tm, first_fail = self._proven_topk(
+                queries, args, k, dispatched, tmargin, version, n_real,
+                call=call)
             with spans.span("results", call), self._lock:
                 self._note_margin(tm, first_fail, kk=k, n_real=n_real)
                 return self._knn_results_np(dist_np, rows_np, k, searched,
                                             n_records)
 
         return self._leased_finish(finish_escalate)
+
+    def _proven_topk(self, queries, args: SearchArgs, kk: int, dispatched,
+                     tmargin: Optional[int], version: int, n_real: int, *,
+                     call: int):
+        """The margin ladder of every exhaustive finish: fetch
+        `dispatched`, _exact_topk_device(queries, ..., kk, tie_margin=
+        tmargin) made on mutation generation `version`, and climb until
+        every flag is 1 or the selection holds every segment.
+
+        A round re-dispatches the queries whose flag is 0 at the next rung
+        on the CURRENT device state and filter mask (re-read under the
+        lock); the others keep their answers, which their flags proved.
+        After a write since `version`, or when every query failed, the
+        whole batch goes again, so that all its answers come from one
+        state.  Returns host (dist, rows, the last round's margin, the
+        first fetch's failure fraction over the n_real real queries)."""
+        dist, rows, ties, s_used, nseg = dispatched
+        tm, ver, sel, first_fail = tmargin, version, None, None
+        while True:
+            got = self._fetch_results(dist, rows, ties, call=call)
+            if sel is None:
+                dist_np, rows_np, tie_np = got
+            else:
+                dist_np[sel], rows_np[sel], tie_np[sel] = got
+            if first_fail is None:
+                first_fail = 1.0 - float(tie_np[:n_real].mean())
+            if s_used >= nseg or int(tie_np.min()) == 1:
+                return dist_np, rows_np, tm, first_fail
+            with spans.span("escalate", call), self._lock:
+                tm = self._escalate_margin(tm)
+                dev = self._device_state()
+                sel = np.flatnonzero(tie_np == 0)
+                if len(sel) == len(tie_np) or self.columns.version != ver:
+                    sel, q, ver = None, queries, self.columns.version
+                else:
+                    q = queries.index_select(0, torch.from_numpy(sel).to(
+                        queries.device))
+                spans.add("escalate_q", q.shape[0])
+                dist, rows, ties, s_used, nseg = self._exact_topk_device(
+                    q, dev, self._valid(dev, args), kk, tie_margin=tm)
 
     # A starting-margin failure is "structural" when at least this fraction
     # of the batch's REAL queries tripped the flag; below it the failure is
@@ -1229,59 +1224,53 @@ class Collection:
                                        self.quantization,
                                        self.dimension_count)
 
-    def _exact_knn_f64(self, qvecs, queries, dev, valid, k: int,
-                       n_passing: int, searched: int, n_records: int,
-                       n_real: Optional[int] = None, *,
-                       call: int) -> list[SearchResults]:
+    def _exact_knn_f64(self, qvecs, queries, args: SearchArgs, dev, valid,
+                       k: int, n_passing: int, searched: int, n_records: int,
+                       n_real: int, *, call: int) -> list[SearchResults]:
         """precision="exact" above the host-scan threshold: the device
         produces a provably complete f32 top-(k+margin) shortlist, and the
-        final ranking is recomputed on the host in f64.  The margin widens
-        until the f64 k-th best is provably separated from the shortlist
-        boundary (boundary > d64_k + eps)."""
-        nq = qvecs.shape[0]
-        n_real = nq if n_real is None else n_real
+        final ranking is recomputed on the host in f64.  The shortlist
+        widens (the whole batch) until the f64 k-th best is provably
+        separated from the shortlist boundary (boundary > d64_k + eps).
+        Runs synchronously under the caller's lock."""
+        pct = self._pct(searched, n_records)
         m = max(64, k)
-        tmargin = self._seg_margin_hint
+        kk = min(k + m, n_passing)
+        tm = self._seg_margin_hint
+        dispatched = self._exact_topk_device(queries, dev, valid, kk,
+                                             tie_margin=tm)
         first_fail = None
         while True:
-            kk = min(k + m, n_passing)
-            dist, rows, ties, s_used, nseg = self._exact_topk_device(
-                queries, dev, valid, kk, tie_margin=tmargin)
-            dist_np, rows_np, tie_np = self._fetch_results(dist, rows, ties,
-                                                           call=call)
-            if first_fail is None:
-                first_fail = 1.0 - float(tie_np[:n_real].mean())
-            if s_used < nseg and int(tie_np.min()) == 0:
-                # the shortlist itself may be incomplete: widen the
-                # segment margin first
-                tmargin = self._escalate_margin(tmargin)
-                continue
-            self._note_margin(tmargin, first_fail, kk=kk, n_real=n_real)
-            out = []
-            ok = True
-            for qi in range(nq):
-                fin = np.isfinite(dist_np[qi])
-                cand = rows_np[qi][fin]
-                if len(cand) == 0:
-                    out.append([])
-                    continue
-                d64 = dist_ops.distance_np(
-                    np.asarray(qvecs[qi], dtype=np.float64)[None, :],
-                    self._rows_vectors_f64(cand), self.metric)
-                order = np.argsort(d64, kind="stable")[:k]
-                if len(cand) == kk and kk < n_passing:
-                    boundary = float(dist_np[qi][fin][-1])
-                    eps = self._F32_EPS_REL * max(1.0, abs(boundary))
-                    if float(d64[order[-1]]) + eps >= boundary:
-                        ok = False
-                        break
-                out.append([self._mk_result(int(cand[i]), float(d64[i]))
-                            for i in order])
-            if ok or kk >= n_passing:
-                break
+            dist_np, rows_np, tm, fail = self._proven_topk(
+                queries, args, kk, dispatched, tm, self.columns.version,
+                n_real, call=call)
+            first_fail = fail if first_fail is None else first_fail
+            self._note_margin(tm, first_fail, kk=kk, n_real=n_real)
+            with spans.span("results", call):
+                out = []
+                for qi in range(qvecs.shape[0]):
+                    fin = np.isfinite(dist_np[qi])
+                    cand = rows_np[qi][fin]
+                    d64 = dist_ops.distance_np(
+                        qvecs[qi][None, :], self._rows_vectors_f64(cand),
+                        self.metric)
+                    order = np.argsort(d64, kind="stable")[:k]
+                    if len(cand) == kk and kk < n_passing:
+                        boundary = float(dist_np[qi][fin][-1])
+                        eps = self._F32_EPS_REL * max(1.0, abs(boundary))
+                        if float(d64[order[-1]]) + eps >= boundary:
+                            break  # not separated: widen the shortlist
+                    out.append(self._results(cand[order].tolist(),
+                                             d64[order].tolist(), pct))
+                else:
+                    return out
             m *= 4
-        pct = self._pct(searched, n_records)
-        return [SearchResults(r, pct) for r in out]
+            kk = min(k + m, n_passing)
+            # shortlist widening re-dispatch
+            with spans.span("escalate", call):
+                spans.add("escalate_q", queries.shape[0])
+                dispatched = self._exact_topk_device(queries, dev, valid, kk,
+                                                     tie_margin=tm)
 
     def _radius_search(self, args: SearchArgs, qvec: np.ndarray,
                        call: int):
@@ -1308,9 +1297,8 @@ class Collection:
             self._rows_vectors_f64(rows_np), self.metric)
         keep = np.flatnonzero(d64 <= radius)
         order = keep[np.argsort(d64[keep], kind="stable")]
-        results = [self._mk_result(int(rows_np[i]), float(d64[i]))
-                   for i in order]
-        return SearchResults(results, self._pct(searched, n_records))
+        return self._results(rows_np[order].tolist(), d64[order].tolist(),
+                             self._pct(searched, n_records))
 
     def _host_scan_radius(self, qvec: np.ndarray, radius: float,
                           mask: np.ndarray, n_passing: int,
@@ -1327,8 +1315,7 @@ class Collection:
         d = dist_ops.distance_np(qvec[None, :], vecs, self.metric)
         hit = np.flatnonzero(d <= radius)
         order = hit[np.argsort(d[hit], kind="stable")]
-        return SearchResults(
-            [self._mk_result(int(live[i]), float(d[i])) for i in order], pct)
+        return self._results(live[order].tolist(), d[order].tolist(), pct)
 
     def _host_scan_knn(self, qvecs: np.ndarray, k: int, mask: np.ndarray,
                        n_passing: int, n_records: int) -> list[SearchResults]:
@@ -1346,9 +1333,8 @@ class Collection:
             d = dist_ops.distance_np(qvecs[qi][None, :], vecs, self.metric)
             part = np.argpartition(d, k - 1)[:k]
             order = part[np.argsort(d[part], kind="stable")]
-            out.append(SearchResults(
-                [self._mk_result(int(live[i]), float(d[i])) for i in order],
-                pct))
+            out.append(self._results(live[order].tolist(),
+                                     d[order].tolist(), pct))
         return out
 
     # -- result assembly ---------------------------------------------------
@@ -1360,6 +1346,13 @@ class Collection:
         md = self.columns.metadata[row]
         return SearchResult(self.columns.ids.item(row),
                             md if md is not None else b"", d)
+
+    def _results(self, rows, dists, pct: float) -> SearchResults:
+        """One query's SearchResults from its rows and distances, in order,
+        as Python ints and floats (from .tolist(): numpy scalars cost more
+        per element)."""
+        mk = self._mk_result
+        return SearchResults([mk(r, d) for r, d in zip(rows, dists)], pct)
 
     @staticmethod
     def _fetch_results(dist, rows, counts=None, *, call: int):
@@ -1387,16 +1380,14 @@ class Collection:
             pcts = itertools.repeat(self._pct(searched, n_records), nq)
         else:
             pcts = [self._pct(c, n_records) for c in cnt.tolist()]
-        mk = self._mk_result
         out = []
         for qi, pct in zip(range(nq), pcts):
             a, b = qi * kk, qi * kk + kk
-            if fl is None:
-                res = [mk(r, d) for r, d in zip(rl[a:b], dl[a:b])]
-            else:
-                res = [mk(r, d) for r, d, f in zip(rl[a:b], dl[a:b], fl[a:b])
-                       if f]
-            out.append(SearchResults(res, pct))
+            r, d = rl[a:b], dl[a:b]
+            if fl is not None:
+                r = itertools.compress(r, fl[a:b])
+                d = itertools.compress(d, fl[a:b])
+            out.append(self._results(r, d, pct))
         return out
 
     def _sorted_doc_ids(self) -> list[int]:

@@ -68,11 +68,7 @@ def fused_k_ok(k: int, n_queries: int) -> bool:
 # extra segments gathered beyond k: the JAX package's margin for f32
 # surfaces (no storage collisions); a failure escalates to the 64 rung.  K1
 # always writes f32 minima, so this is the port's only default.
-_TIE_MARGIN_F32 = 6
-
-
-def default_tie_margin() -> int:
-    return _TIE_MARGIN_F32
+DEFAULT_TIE_MARGIN = 6
 
 
 # rerank working set per dispatch chunk: the gathered candidates' f32
@@ -743,7 +739,7 @@ def fused_scan_topk(queries, codes, norms, valid, *, bits: int, metric: str,
     segmins, dq_rel = _segment_min(queries, codes, norms, valid, bits=bits,
                                    metric=metric, seg=seg)
     if tie_margin is None:
-        tie_margin = default_tie_margin()
+        tie_margin = DEFAULT_TIE_MARGIN
     nseg = norms.shape[0] // seg
     s = min(k + tie_margin, nseg)
     full = s >= nseg

@@ -17,15 +17,18 @@ The stages (core/collection.py):
             precision="exact" search, synchronous, runs whole inside it)
   fetch     one device-to-host fetch of results, with the wait for the
             device work it reads (Collection._fetch_results)
-  escalate  one re-dispatch round of a finish(): the next margin rung or
-            k, the device state, the enqueue; the wait for the re-run
-            kernel falls in the next fetch
+  escalate  one re-dispatch round: the next margin rung, k, sketch
+            budget or exact shortlist, the device state, the enqueue; the
+            wait for the re-run kernel falls in the next fetch
   results   the margin hint and the assembly of the results, lock included
+            (precision="exact" kNN: the host f64 rerank and assembly of a
+            shortlist)
 
 Beside the spans' counters:
-  escalate_q  the queries that escalate rounds re-dispatched (a kNN round
-              re-dispatches only the batch's failing queries, so
-              escalate_q / escalate_n is the queries a round)
+  escalate_q  the queries that escalate rounds re-dispatched (a margin
+              rung re-dispatches only the batch's failing queries, other
+              rounds the whole batch), so escalate_q / escalate_n is the
+              queries a round
 
 The counters are plain integers, as ops/scan.py's launch counters: read
 them by module attribute, and difference two readings.  Updates take a

@@ -1,17 +1,19 @@
-"""Escalation rounds of a high kNN batch (Collection._knn_many_async's
-finish): a round re-dispatches only the batch's queries whose completeness
-flag is 0, and the others keep their first answers, which the flag proved.
+"""Escalation rounds of the margin ladder (Collection._proven_topk), which
+every exhaustive finish runs: high and exact kNN, high and exact radius.  A
+round re-dispatches only the batch's queries whose completeness flag is 0,
+and the others keep their first answers, which the flag proved.
 
 On the CPU (the kernels' plain versions, HOST_SCAN_MAX_ELEMS patched to 0
 in both packages, as tests/test_torch_collection.py does) a batch of
 ordinary queries with the tie corpus's query among them answers every query
-as it is answered alone and as the JAX package answers the batch;
-spans.escalate_q counts the failing queries a round re-dispatches; a write
-between dispatch and finish() sends the whole batch again, so that its
-answers come from the new state alone; and a batch in which every query
-fails goes whole, as before.  On the card (marked cuda) a 1,024-query
-batch with a few forced failures gives the ids of the whole batch sent up
-the margin ladder, through the fp32 tile loop (16-bit codes) and the int8
+as it is answered alone and as the JAX package answers the batch, through
+search_many at high and exact and radius_many at high; each round takes
+the queries the last fetch left failing, and spans.escalate_q counts them;
+a write between dispatch and finish() sends the whole batch again, so that
+its answers come from the new state alone; and a batch in which every
+query fails goes whole.  On the card (marked cuda) a 1,024-query batch
+with a few forced failures gives the ids of the whole batch sent up the
+margin ladder, through the fp32 tile loop (16-bit codes) and the int8
 route (8-bit codes)."""
 
 import numpy as np
@@ -131,61 +133,172 @@ def test_batch_answers_as_alone_and_as_jax(tmp_path, jdb, sizes, metric,
         _same(r, g, False)
 
 
-@pytest.mark.parametrize("bits", [32, 8])
-def test_escalate_q_counts_the_failing_queries(tmp_path, device_path, bits):
-    db, q, _ = _tie_corpus()
+def _radius(pkg, qs):
+    return [pkg.SearchArgs(vector=v, radius=RADIUS, precision="high")
+            for v in qs]
+
+
+def _exact(pkg, qs):
+    return [pkg.SearchArgs(vector=v, k=K, precision="exact") for v in qs]
+
+
+# Each way into the margin ladder: (its batch call, its searches, the tie
+# corpus's shape for it).  The tie cluster must hold the search's last
+# shortlisted rank: k for high kNN; k + 64 for exact kNN, whose top k
+# (N_TOP nearer rows) stand clear of the cluster by more than the f64
+# rerank's cushion; 1,024 for radius, whose RADIUS keeps the N_TOP rows
+# and none of the cluster.
+N_TOP, RADIUS = K, 0.2
+ENTRIES = {
+    "search_many": ("search_many", _high, {}),
+    "radius_many": ("radius_many", _radius, {"n_ties": 1100, "n_top": N_TOP}),
+    "exact": ("search_many", _exact, {"n_top": N_TOP}),
+}
+
+
+def _entry_corpus(entry):
+    """(rows, tie query, the tie query's ids at 32 bits) for an entry."""
+    shape = ENTRIES[entry][2]
+    if not shape:
+        return _tie_corpus()
+    db, q = _wide_tie_corpus(16, **shape)
+    return db, q, [(600 - 1 - j) * 32 for j in range(N_TOP)]
+
+
+def _call(entry, pkg, c, qs):
+    many, searches, _ = ENTRIES[entry]
+    return getattr(c, many)(searches(pkg, qs))
+
+
+@pytest.fixture
+def flags(monkeypatch):
+    """A copy of the completeness flags of every fetch, in order."""
+    seen = []
+    orig = tcoll.Collection._fetch_results
+
+    def spy(dist, rows, counts=None, *, call):
+        got = orig(dist, rows, counts, call=call)
+        seen.append(None if got[2] is None else got[2].copy())
+        return got
+    monkeypatch.setattr(tcoll.Collection, "_fetch_results",
+                        staticmethod(spy))
+    return seen
+
+
+def _failing(flags) -> list:
+    """The failing query count of each fetch."""
+    return [int((f == 0).sum()) for f in flags]
+
+
+def _as_alone_and_as_jax(entry, jdb, tc, jc, qs, got):
+    """The batch's answers equal each query's alone, bit for bit, and the
+    JAX package's answers to the batch."""
+    alone = [tc.search(a) for a in ENTRIES[entry][1](tdb, qs)]
+    ref = _call(entry, jdb, jc, qs)
+    for g, a, r in zip(got, alone, ref):
+        _same(a, g, True)
+        _same(r, g, False)
+
+
+ROUND_CASES = [pytest.param("search_many", 32, id="32"),
+               pytest.param("search_many", 8, id="8")] + [
+    pytest.param(e, b, id=f"{e}-{b}") for e in ("radius_many", "exact")
+    for b in (32, 8)]
+
+
+@pytest.mark.parametrize("entry,bits", ROUND_CASES)
+def test_escalate_q_counts_the_failing_queries(tmp_path, jdb, sizes, flags,
+                                               entry, bits):
+    """Each round of the margin ladder re-dispatches exactly the queries
+    whose flag the last fetch left at 0 (two tie queries of sixteen, and
+    any ordinary query the cluster reaches)."""
+    db, q, want = _entry_corpus(entry)
     qs = _batch(db, q, n=16)
-    qs[11] = q  # two failing queries of sixteen
-    c = _port(tmp_path, tdb.COSINE, bits, db)
+    qs[11] = q
+    jc = _open(jdb, tmp_path / "jax.dat", tdb.COSINE, bits, db)
+    tc = _port(tmp_path, tdb.COSINE, bits, db)
     try:
-        _, rounds, requeued = _traced(lambda: c.search_many(_high(tdb, qs)))
+        got, rounds, requeued = _traced(lambda: _call(entry, tdb, tc, qs))
+        fails = _failing(flags)
+        assert {TIE_AT, 11} <= set(np.flatnonzero(flags[0] == 0).tolist())
+        # each round takes the queries the last fetch left failing
+        assert len(sizes) >= 2 and sizes[0] == len(qs)
+        assert sizes[1:] == fails[:-1] and fails[-1] == 0
+        assert max(sizes[1:]) < len(qs)
+        assert rounds == len(sizes) - 1 and requeued == sum(sizes[1:])
+        if entry == "search_many":  # at k = 10 the cluster reaches no other
+            assert requeued == 2 * rounds
+        if bits == 32:
+            assert [r.id for r in got[TIE_AT].results] == want
+        _as_alone_and_as_jax(entry, jdb, tc, jc, qs, got)
     finally:
-        c.close()
-    assert rounds >= 1
-    assert requeued == 2 * rounds
+        jc.close()
+        tc.close()
 
 
-def test_write_before_finish_requeues_the_whole_batch(tmp_path, device_path,
-                                                      sizes):
-    db, q, want = _tie_corpus()
+@pytest.mark.parametrize("entry", ["search_many", "radius_many"])
+def test_write_before_finish_requeues_the_whole_batch(tmp_path, jdb, sizes,
+                                                      flags, monkeypatch,
+                                                      entry):
+    """A document written at the first fetch, between the batch's dispatch
+    and its finish: the first round goes whole on the new state, later
+    ones take the failing queries.  (precision="exact" runs under the
+    lock, so no write can come between its rounds.)"""
+    db, q, want = _entry_corpus(entry)
     qs = _batch(db, q)
-    c = _port(tmp_path, tdb.COSINE, 32, db)
+    tc = _port(tmp_path, tdb.COSINE, 32, db)
+    orig = tcoll.Collection._fetch_results
+    written = []
+
+    def write_first(dist, rows, counts=None, *, call):
+        if not written:
+            # a document at query 0's own place: only a dispatch on the
+            # new state finds it
+            written.append(len(db))
+            tc.add_documents([len(db)], qs[:1], [b"new"])
+        return orig(dist, rows, counts, call=call)
     try:
-        fin = c.search_many_async(_high(tdb, qs))
-        # a document at query 0's own place: only a dispatch on the new
-        # state finds it
-        c.add_documents([len(db)], qs[:1], [b"new"])
-        got, rounds, requeued = _traced(fin)
-        fresh = c.search_many(_high(tdb, qs))
+        with monkeypatch.context() as m:
+            m.setattr(tcoll.Collection, "_fetch_results",
+                      staticmethod(write_first))
+            got, rounds, requeued = _traced(lambda: _call(entry, tdb, tc, qs))
+        fails = _failing(flags)
+        fresh = _call(entry, tdb, tc, qs)
+        assert written and rounds >= 1
+        assert sizes[:2] == [len(qs), len(qs)]
+        assert sizes[2:rounds + 1] == fails[1:rounds] and fails[rounds] == 0
+        assert max(sizes[2:rounds + 1], default=0) < len(qs)
+        assert requeued == sum(sizes[1:rounds + 1])
+        assert got[0].results[0].id == len(db)
+        assert [r.id for r in got[TIE_AT].results] == want
+        for g, f in zip(got, fresh):
+            _same(f, g, True)
+        jc = _open(jdb, tmp_path / "jax.dat", tdb.COSINE, 32, db)
+        try:
+            jc.add_documents([len(db)], qs[:1], [b"new"])
+            _as_alone_and_as_jax(entry, jdb, tc, jc, qs, got)
+        finally:
+            jc.close()
     finally:
-        c.close()
-    # the first round goes whole on the new state, later ones take the
-    # tie query alone
-    assert rounds >= 1 and sizes[:2] == [len(qs), len(qs)]
-    assert sizes[2:2 + rounds - 1] == [1] * (rounds - 1)
-    assert requeued == len(qs) + rounds - 1
-    assert got[0].results[0].id == len(db)
-    assert [r.id for r in got[TIE_AT].results] == want
-    for g, f in zip(got, fresh):
-        _same(f, g, True)
+        tc.close()
 
 
-def test_every_query_failing_goes_whole(tmp_path, jdb, sizes):
-    db, q, want = _tie_corpus()
+@pytest.mark.parametrize("entry", sorted(ENTRIES))
+def test_every_query_failing_goes_whole(tmp_path, jdb, sizes, entry):
+    db, q, want = _entry_corpus(entry)
     qs = np.repeat(q[None, :], 8, axis=0)
     jc = _open(jdb, tmp_path / "jax.dat", tdb.COSINE, 32, db)
     tc = _port(tmp_path, tdb.COSINE, 32, db)
     try:
-        got, rounds, requeued = _traced(lambda: tc.search_many(_high(tdb, qs)))
-        ref = jc.search_many(_high(jdb, qs))
+        got, rounds, requeued = _traced(lambda: _call(entry, tdb, tc, qs))
+        assert rounds >= 1 and sizes == [8] * (rounds + 1)
+        assert requeued == 8 * rounds
+        for g in got:
+            assert [x.id for x in g.results] == want
+        _as_alone_and_as_jax(entry, jdb, tc, jc, qs, got)
     finally:
         jc.close()
         tc.close()
-    assert rounds >= 1 and sizes == [8] * (rounds + 1)
-    assert requeued == 8 * rounds
-    for g, r in zip(got, ref):
-        assert [x.id for x in g.results] == want
-        _same(r, g, False)
 
 
 def test_mesh_requeues_the_failing_queries(tmp_path, device_path, sizes):
@@ -209,17 +322,19 @@ def test_mesh_requeues_the_failing_queries(tmp_path, device_path, sizes):
         _same(o, g, False)
 
 
-def _wide_tie_corpus(d, n=65536, n_ties=300, lo=600):
-    """_tie_corpus at d dimensions: 300 segments whose minima differ at the
-    1e-6 level, under either metric (the rows are unit vectors)."""
+def _wide_tie_corpus(d, n=65536, n_ties=300, lo=600, n_top=0):
+    """_tie_corpus at d dimensions: n_ties segments whose minima differ at
+    the 1e-6 level, under either metric (the rows are unit vectors), and
+    n_top rows nearer the query, 1e-3 apart, in the segments below them."""
     rng = np.random.default_rng(9)
     db = rng.standard_normal((n, d))
     db /= np.linalg.norm(db, axis=1, keepdims=True)
     db[:, 0] = np.abs(db[:, 0]) * 0.2
     db /= np.linalg.norm(db, axis=1, keepdims=True)
-    for i in range(n_ties):
-        row = (lo + i) * 32
-        cos = 0.7 + i * 1e-6
+    cosines = [(lo + i, 0.7 + i * 1e-6) for i in range(n_ties)] + \
+        [(lo - 1 - j, 0.9 - j * 1e-3) for j in range(n_top)]
+    for seg, cos in cosines:
+        row = seg * 32
         db[row] = 0.0
         db[row, 0] = cos
         db[row, 1] = np.sqrt(1.0 - cos * cos)

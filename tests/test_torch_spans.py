@@ -70,6 +70,10 @@ def _high(qs, k=10):
     return [tdb.SearchArgs(vector=q, k=k, precision="high") for q in qs]
 
 
+def _exact(qs, k=10):
+    return [tdb.SearchArgs(vector=q, k=k, precision="exact") for q in qs]
+
+
 def _radius(qs, radius=0.2):
     return [tdb.SearchArgs(vector=q, radius=radius, precision="high")
             for q in qs]
@@ -78,6 +82,7 @@ def _radius(qs, radius=0.2):
 # each way into the search path -> its results
 CALLS = {
     "search_many": lambda c, qs: c.search_many(_high(qs)),
+    "search_many_exact": lambda c, qs: c.search_many(_exact(qs)),
     "radius_many": lambda c, qs: c.radius_many(_radius(qs)),
     "search": lambda c, qs: [c.search(_high(qs[:1])[0])],
     "search_radius": lambda c, qs: [c.search(_radius(qs[:1])[0])],
