@@ -244,11 +244,11 @@ def wall_ms(fn, reps: int) -> list[float]:
 # ---------------------------------------------------------------------------
 
 def segmin_error(got, want, qn2, norms, valid, metric, dims, what,
-                 dq_rel=None):
+                 dq_rel=None, bits=8):
     """Segment minima (K1, K5/K6) against the plain version in f64:
     identical +inf positions and every finite error within the completeness
-    flag's own bound (surface_delta, with the int8 route's dq_rel where
-    given).  Returns (max |err|, max err/bound)."""
+    flag's own bound (surface_delta, with the int8 route's dq_rel and the
+    codes' bits where given).  Returns (max |err|, max err/bound)."""
     from syzgydb_tpu_torch.ops import scan
 
     torch.cuda.synchronize()
@@ -256,7 +256,7 @@ def segmin_error(got, want, qn2, norms, valid, metric, dims, what,
         raise AssertionError(f"segment minima: +inf positions differ: "
                              f"{what}")
     delta = scan.surface_delta(qn2, norms, valid, metric=metric, dims=dims,
-                               dq_rel=dq_rel, bits=8
+                               dq_rel=dq_rel, bits=bits
                                ).to(torch.float64)[:, None]
     err = (got.double() - want).abs()
     err = torch.where(torch.isinf(want), torch.zeros_like(err), err)
@@ -268,9 +268,10 @@ def segmin_error(got, want, qn2, norms, valid, metric, dims, what,
 
 
 def i8_checks(got, tq, codes, norms, valid, metric, dims, what,
-              seg=32, bf16=False):
+              seg=32, bf16=False, bits=8):
     """The int8 route (8-bit codes: K1 at seg 32, K5/K6 at seg 16/64/128,
-    K4's surface for seg=None, bf16 or f32) held both ways: within
+    K4's surface for seg=None, bf16 or f32; 16-bit codes: K1 and K5/K6)
+    held both ways: within
     surface_delta (with slice_queries' dq_rel) of the f64 plain version on
     the unrounded queries, and within 4 f32 ulps of the surrogate's terms
     (i8_term_scale) of the f64 plain version on the sliced queries q_hat
@@ -281,11 +282,11 @@ def i8_checks(got, tq, codes, norms, valid, metric, dims, what,
 
     def plain(q, terms=None):
         if seg is None:
-            return scan.score_surface_plain(q, codes, norms, valid, bits=8,
+            return scan.score_surface_plain(q, codes, norms, valid, bits=bits,
                                             metric=metric,
                                             dtype=torch.float64,
                                             query_terms=terms)
-        return scan.segment_min_scan_plain(q, codes, norms, valid, bits=8,
+        return scan.segment_min_scan_plain(q, codes, norms, valid, bits=bits,
                                            metric=metric, seg=seg,
                                            dtype=torch.float64,
                                            query_terms=terms)
@@ -298,7 +299,7 @@ def i8_checks(got, tq, codes, norms, valid, metric, dims, what,
                                    what, bf16, dq_rel=dq_rel)
     else:
         err, ratio = segmin_error(got, want, qn2, norms, valid, metric, dims,
-                                  what, dq_rel=dq_rel)
+                                  what, dq_rel=dq_rel, bits=bits)
     del want
     qhat = scan.unslice_queries(slices, scale)[:, :dims]
     tight = plain(qhat, (qn2, tq.sum(-1)))
@@ -307,7 +308,8 @@ def i8_checks(got, tq, codes, norms, valid, metric, dims, what,
         raise AssertionError(f"int8 route: +inf positions differ on q_hat: "
                              f"{what}")
     tol = 4 * 2.0 ** -24 * scan.i8_term_scale(
-        qn2, norms, valid, metric=metric, dims=dims).double()[:, None]
+        qn2, norms, valid, metric=metric, dims=dims,
+        bits=bits).double()[:, None]
     fin = torch.isfinite(tight)
     zero = torch.zeros_like(tight)
     e = torch.where(fin, (got - tight).abs(), zero)
@@ -439,9 +441,9 @@ def check_kernels(dev, n: int = 65536, batches=(64, 1024)) -> dict:
                 got = scan.segment_min_scan(tq, tc, tn, tv, bits=bits,
                                             metric=metric)
                 what = f"{bits}-bit {metric} Q={q}"
-                if bits == 8:  # K1's int8 route
+                if bits in (8, 16):  # K1's int8 route
                     err, ratio, ulps = i8_checks(got, tq, tc, tn, tv,
-                                                 metric, d, what)
+                                                 metric, d, what, bits=bits)
                     i8_ulp = max(i8_ulp, ulps)
                     i8_runs += 1
                 else:
@@ -471,13 +473,20 @@ def check_kernels(dev, n: int = 65536, batches=(64, 1024)) -> dict:
         qn2 = tq.square().sum(-1)
         for seg, metric in ((16, "cosine"), (64, "euclidean"),
                             (128, "cosine")):
-            want = scan.segment_min_scan_plain(
-                tq, tc, tn, tv, bits=bits, metric=metric, seg=seg,
-                dtype=torch.float64)
             got = scan.segment_min_scan(tq, tc, tn, tv, bits=bits,
                                         metric=metric, seg=seg)
-            err, ratio = segmin_error(got, want, qn2, tn, tv, metric, d,
-                                      f"seg {seg} {bits}-bit {metric}")
+            what = f"seg {seg} {bits}-bit {metric}"
+            if bits == 16:  # K5/K6 on the int8 route
+                err, ratio, ulps = i8_checks(got, tq, tc, tn, tv, metric, d,
+                                             what, seg=seg, bits=bits)
+                i8_ulp = max(i8_ulp, ulps)
+                i8_runs += 1
+            else:
+                want = scan.segment_min_scan_plain(
+                    tq, tc, tn, tv, bits=bits, metric=metric, seg=seg,
+                    dtype=torch.float64)
+                err, ratio = segmin_error(got, want, qn2, tn, tv, metric, d,
+                                          what)
             free_err, free_ratio = max(free_err, err), max(free_ratio, ratio)
             free_runs += 1
         # K4: the full surface, f32 and bf16
@@ -501,8 +510,9 @@ def check_kernels(dev, n: int = 65536, batches=(64, 1024)) -> dict:
         del tc, tn, tv
     log(f"K1: {runs} configurations within delta of f64 "
         f"(max |err| {seg_err:.3g}, max err/delta {seg_ratio:.3g}); the "
-        f"{i8_runs} 8-bit K1, K5/K6 and K4 ones (int8 route) also within 4 "
-        f"ulps on q_hat (max err/bound {i8_ulp:.3g}, f32 outputs)")
+        f"{i8_runs} 8-bit K1, K5/K6 and K4 and 16-bit K1 and K5/K6 ones "
+        f"(int8 route) also within 4 ulps on q_hat (max err/bound "
+        f"{i8_ulp:.3g}, f32 outputs)")
     log(f"K5/K6 (seg 16/64/128): {free_runs} configurations within delta "
         f"of f64 (max |err| {free_err:.3g}, max err/delta "
         f"{free_ratio:.3g})")
@@ -680,6 +690,7 @@ def reset_counters() -> None:
 
     scan.launches = scan.free_seg_launches = scan.surface_launches = 0
     scan.i8_launches = scan.i8_free_seg_launches = scan.i8_surface_launches = 0
+    scan.i8_hilo_launches = 0
     scan.rerank_rows = 0
     hamming_scan.launches = hamming_scan.u8_launches = 0
 
@@ -2040,8 +2051,8 @@ def e2e_64bit(rows: np.ndarray, queries: np.ndarray, dev,
 FP32_CHECK_QS = (1, 16, 17, 64, 65, 128, 129)
 
 
-def fp32_synthetic(bits: int, n: int, dev):
-    """n x 384 seeded synthetic codes at `bits` (64-bit: f32 codes), their
+def fp32_synthetic(bits: int, n: int, dev, dims: int = DIMS):
+    """n x dims seeded synthetic codes at `bits` (64-bit: f32 codes), their
     decoded f32 values (affine-mapped for 4/16 bits), norms and 1% invalid
     rows."""
     from syzgydb_tpu_torch.ops import distance as dist_ops
@@ -2049,7 +2060,7 @@ def fp32_synthetic(bits: int, n: int, dev):
 
     gen = torch.Generator(device=dev)
     gen.manual_seed(bits)
-    w = qz.device_width(bits, DIMS)
+    w = qz.device_width(bits, dims)
     if bits == 4:
         codes = torch.randint(0, 256, (n, w), generator=gen, device=dev,
                               dtype=torch.uint8)
@@ -2058,7 +2069,7 @@ def fp32_synthetic(bits: int, n: int, dev):
                               device=dev, dtype=torch.int16)
     else:
         codes = torch.rand((n, w), generator=gen, device=dev) * 2 - 1
-    vals = dist_ops.decode_codes(codes, bits, DIMS)
+    vals = dist_ops.decode_codes(codes, bits, dims)
     if bits in (4, 16):
         scale, offset = qz.affine_constants(bits)
         vals = vals.mul_(scale).add_(offset)
@@ -2117,8 +2128,10 @@ def fp32_variant_checks(tq, codes, norms, valid, bits: int) -> dict:
 
 
 def fp32_width_times(tq, dev, n: int = 1 << 20) -> dict:
-    """The fp32 kernels at the widths the int8 route does not take (4, 16,
-    32 and 64 bits; 64-bit codes are f32 on the card), on n x 384 seeded
+    """The fp32 kernels at the widths the int8 route does not take (4, 32
+    and 64 bits; 64-bit codes are f32 on the card), and at 16 bits, where
+    K4 and rows past hilo_max_dims still take them and K1's int8 route
+    (hilo_times) is measured against them, on n x 384 seeded
     synthetic codes: first every query tile held against the plain version
     (fp32_variant_checks), then K1 (csrc/segmin.cu, seg 32) at Q = 1024, 64
     and 16 and K4 (csrc/surface.cu, f32) at Q = 128 and 16, cosine, each
@@ -2214,6 +2227,86 @@ def fp32_width_times(tq, dev, n: int = 1 << 20) -> dict:
                     f"{v['library_fp32_ms']:.3f})" for k, v in out.items()
                     if k not in ("checks", "tile_sweep")))
     log(f"fp32 K1 64-bit tile sweep (ms): {out['tile_sweep']}")
+    return out
+
+
+def hilo_times(tq, dev, n: int = 1 << 20) -> dict:
+    """K1 (seg 32) on 16-bit codes by the int8 route (csrc/segmin_i8.cu,
+    each code split into a high and a low byte in the kernel's load;
+    launched directly, whichever kernel _route picks for the shape) on
+    n x 384 seeded synthetic codes (fp32_synthetic) at Q = 1024, 64 and 16,
+    cosine, and on n x 960 at Q = 1024, Euclidean (the GIST cell's launch):
+    each launch at the size it is timed at first held both ways (i8_checks,
+    whose f64 plain versions go in row blocks) and for two bit-identical
+    launches, then timed beside the plain version, the fp32 kernel
+    (csrc/segmin.cu) on the same inputs, fp32 torch.matmul with TF32 off
+    (the library yardstick) and bf16 torch.matmul (inexact) of the queries
+    with the decoded codes, with its bound as the kernel table defines it
+    and the 16-bit int8 floor, 2*6*Q*N*D at 1,979 TOP/s.  `launches` is
+    what scan.i8_hilo_launches counted over the whole phase."""
+    from syzgydb_tpu_torch.ops import scan
+
+    out = {"max_abs_err": 0.0, "max_err_over_ulp_bound": 0.0, "runs": 0}
+    start = scan.i8_hilo_launches
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        for d, metric, qs in ((DIMS, "cosine", (1024, 64, 16)),
+                              (960, "euclidean", (1024,))):
+            codes, vals, norms, valid = fp32_synthetic(16, n, dev, d)
+            vb = vals.to(torch.bfloat16)
+            qv = torch.randn((1024, d), generator=torch.Generator(
+                device=dev).manual_seed(d), device=dev)
+            inputs = (codes, norms, valid)
+
+            def k1(qq):
+                return scan._segmin_i8(qq, *inputs, bits=16, metric=metric,
+                                       seg=32)[0]
+            for q in qs:
+                qq = qv[:q].contiguous()
+                qb = qq.to(torch.bfloat16)
+                what = f"K1 int8 16-bit D={d} {metric} Q={q}"
+                before = scan.i8_hilo_launches
+                got = k1(qq)
+                if scan.i8_hilo_launches != before + 1:
+                    raise AssertionError(f"{what}: not counted")
+                if not torch.equal(got, k1(qq)):
+                    raise AssertionError(f"not bit-identical across two "
+                                         f"launches: {what}")
+                err, _, ulps = i8_checks(got, qq, *inputs, metric, d, what,
+                                         bits=16)
+                del got
+                out["max_abs_err"] = max(out["max_abs_err"], err)
+                out["max_err_over_ulp_bound"] = max(
+                    out["max_err_over_ulp_bound"], ulps)
+                out["runs"] += 1
+                ops = 2.0 * q * n * d
+                out[f"segmin_i8_16bit_d{d}_q{q}"] = {
+                    "ms": cuda_ms(lambda: k1(qq), reps=5),
+                    "fp32_kernel_ms": cuda_ms(lambda: scan.segmin_fp32(
+                        qq, *inputs, bits=16, metric=metric, seg=32),
+                        reps=3),
+                    "plain_ms": cuda_ms(lambda: scan.segment_min_scan_plain(
+                        qq, *inputs, bits=16, metric=metric), reps=1),
+                    "library_fp32_ms": cuda_ms(lambda: qq @ vals.T, reps=5),
+                    "library_bf16_inexact_ms": cuda_ms(lambda: qb @ vb.T,
+                                                       reps=3),
+                    "int8_floor_ms": 2 * scan.I8_SLICES * ops / INT8_OPS * 1e3,
+                    **bound(ops, 2 * n * d + 5 * n + 4 * q * d +
+                            4 * q * (n // 32))}
+            del codes, vals, vb, norms, valid, inputs
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    out["launches"] = scan.i8_hilo_launches - start
+    log(f"K1 int8 16-bit: {out['runs']} configurations within delta of "
+        f"f64 and within 4 ulps on q_hat (max |err| "
+        f"{out['max_abs_err']:.3g}, max err/bound "
+        f"{out['max_err_over_ulp_bound']:.3g}), {out['launches']} launches; "
+        f"ms " + ", ".join(
+            f"{k[16:]} {v['ms']:.3f} (fp32 kernel {v['fp32_kernel_ms']:.3f}, "
+            f"fp32 mm {v['library_fp32_ms']:.3f}, int8 floor "
+            f"{v['int8_floor_ms']:.3f}, bound {v['bound_ms']:.3f})"
+            for k, v in out.items() if k.startswith("segmin_")))
     return out
 
 
@@ -3390,6 +3483,7 @@ def main() -> int:
     del rows64
     times = kernel_times(coll, state, tq, dev)
     times["fp32_widths"] = fp32_width_times(tq, dev)
+    times["i8_16bit"] = hilo_times(tq, dev)
     report["kernel_times"] = times
     tools_phase(coll, rows_text, tq.cpu().numpy(), dev, card, report)
     del rows_text
@@ -3406,6 +3500,8 @@ def main() -> int:
     fp32 = times["fp32_widths"]
     seg32, surf32 = fp32["segmin_64bit_q64"], fp32["surface_64bit_q16"]
     chk32 = fp32["checks"].values()
+    hilo = times["i8_16bit"]
+    hilo1024 = hilo[f"segmin_i8_16bit_d{DIMS}_q1024"]
 
     def row(name, source, replaces, launched, err, t, library):
         return {"name": name, "route": "cuda",
@@ -3443,6 +3539,13 @@ def main() -> int:
         row("segmin_free_seg_natural", "segmin_i8.cu",
             "tools_dev/superseded_kernels.py:138",
             launches["segmin_free_seg"], free_err, free, free["library_ms"]),
+        # K1 int8, 16-bit: launches (scan.i8_hilo_launches over its phase)
+        # and errors from its own phase (the main path is 8-bit), time at
+        # 1M x 384, Q = 1024, yardstick fp32 torch.matmul (the fp32
+        # kernel's time is fp32_kernel_ms in the report)
+        row("segmin_i8_16bit", "segmin_i8.cu",
+            "syzgydb_tpu/ops/pallas_scan.py:416", hilo["launches"],
+            hilo["max_abs_err"], hilo1024, hilo1024["library_fp32_ms"]),
         # K1 and K4 on f32 codes (the REST server's default quantization,
         # 64): launches and errors from the 64-bit phase (with every tile's
         # check at every width), times at 1M x 384, the table's bound (the

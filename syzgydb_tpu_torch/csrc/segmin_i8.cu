@@ -1,9 +1,9 @@
-// K1, K5/K6 and K4 for 8-bit codes on int8 tensor cores: one fused
-// code-matmul with exact integer products, the surrogate epilogue, and one
-// of three stores: segment minima at seg 32 (K1) or 16/64/128 (K5/K6), or
-// the full surface (K4).
+// K1, K5/K6 and K4 for 8-bit codes, and K1 and K5/K6 for 16-bit codes, on
+// int8 tensor cores: one fused code-matmul with exact integer products, the
+// surrogate epilogue, and one of three stores: segment minima at seg 32 (K1)
+// or 16/64/128 (K5/K6), or the full surface (K4, 8-bit codes only).
 //
-// Replaces, for 8-bit codes:
+// Replaces, for 8-bit codes (and for 16-bit codes, the segment minima):
 //  - syzgydb_tpu/ops/pallas_scan.py::_segmin_ilv_kernel (K1, wrapper
 //    segment_min_scan_ilv) and tools_dev/superseded_kernels.py::
 //    _segmin_kernel / ::_segmin_nat_loop_kernel (K5/K6, wrappers
@@ -15,8 +15,10 @@
 //    score_surface): every (q, r) surrogate, invalid rows +inf, as a (Q, N)
 //    f32 surface or bf16 rounded to nearest from the same f32 value
 //    (epilogue Surface).
-// Other widths stay on segmin.cu and surface.cu's fp32 kernels
-// (ops/scan.py::_route dispatches by width).
+// Other widths, K4 at 16 bits, 16-bit rows past D = 992 and 16-bit
+// batches of Q <= 16 on rows narrower than D = 512 stay on segmin.cu and
+// surface.cu's fp32 kernels (ops/scan.py::_route dispatches by width,
+// kernel and shape).
 //
 // Arithmetic.  The codes are int8 in device memory, row-major (N, D): that
 // is the "col" B operand of mma.sync.m16n8k32.row.col.s32.s8.s8.s32, so
@@ -34,6 +36,27 @@
 // exactly by the wrapper and carried by ops/scan.py::surface_delta) and f32
 // epilogue rounding, nothing from the products.
 //
+// 16-bit codes (BITS = 16).  A centred int16 code c splits exactly into a
+// signed high byte and an unsigned low byte, c = 256 hi + lo, hi = c >> 8
+// in [-128, 127], lo = c & 0xFF in [0, 255].  The codes stay int16,
+// row-major (N, D), in device memory (no second copy); a stage still holds
+// BK = 128 bytes of a row, 64 codes, and the bytes are separated on the way
+// to the tensor cores: one ldmatrix.x4 brings a thread codes 2t, 2t + 1 of
+// four 8-code chunks of its row, and __byte_perm gathers their high bytes
+// into one B fragment pair and their low bytes into another.  That order
+// of K inside each 32-code block (slot p holds code (p & 16) + 8 bit1(p) +
+// 2 ((p >> 2) & 3) + bit0(p)) is the order the wrapper gives the query
+// slices (ops/scan.py::hilo_order), so each A fragment, loaded once,
+// multiplies both: mma .s8.s8 with the high bytes, .s8.u8 with the low
+// ones.  Each slice's two sums are exact int32 (|sum_lo| <= 255 * 127 * Kp
+// < 2^31 for Kp <= 65,536; |sum_hi| <= 128 * 127 * Kp), and combine_hilo()
+// forms sum_s 2^(14 - 7s) (256 H_s + L_s) exactly in int64 (|v| < 2^52)
+// and rounds it once to f32, so the epilogue sees what the 8-bit form
+// gives: every output carries dq_rel and f32 epilogue rounding alone.  The
+// 16-bit form runs the resident-slice kernel only (Kp <= 992 on the H100,
+// as segmin_i8_hilo_max_dims reports it); ops/scan.py sends wider 16-bit
+// rows to the fp32 kernels.
+//
 // Bound on the H100: at Q = 1024, N = 1M, D = 384 the 3-slice int8 products
 // are 2*3*Q*N*D = 2.5 Tops, 1.25 ms at the 1,979 TOP/s dense int8 rate
 // (the bf16 yardstick of 2*Q*N*D over 989 TFLOP/s is 0.83 ms); at Q <= 64
@@ -43,8 +66,26 @@
 // itself reaches 1,254 TOP/s int8 fed from registers (tools/mma_rate.py,
 // H100 80GB HBM3 at 700 W), a 2.0 ms floor for the Q = 1024 products; what
 // this kernel spends beyond it goes to feeding the tensor cores from shared
-// memory (ldmatrix, 5 per 12 MMAs) and to the epilogue.  wgmma, which
-// reads its operands from shared memory itself, is the way past it.
+// memory (ldmatrix, 5 per 12 MMAs; 7 per 24 at 16 bits) and to the
+// epilogue.  At 16 bits the products double: 2*6*Q*N*D, at Q = 1024, N =
+// 1M, D = 960 11.8 Tops, 5.96 ms at 1,979 TOP/s and 9.4 ms at the rate
+// mma.sync reaches (the bf16 yardstick 2*Q*N*D/989 TFLOP/s is 1.99 ms);
+// it takes 25.7 ms there (the fp32 kernels 54.4 ms; H100 80GB HBM3 at
+// 700 W), at 168-204 registers a thread and no spills.  Per k32 step a
+// warp reads 3.5 KB of fragments from shared memory for 24 MMAs, about
+// what the SM's shared-memory bandwidth serves in the time the tensor
+// cores take for them, so the byte split stays in registers: a pass that
+// deinterleaved each stage into high and low planes in shared memory
+// (B then loaded as at 8 bits) measured 27.5-27.7 ms there against
+// 25.2-25.4 ms in the same process.  wgmma, which reads its operands from
+// shared memory itself, is the way past it.  At Q <= 64 both widths and
+// the fp32 kernels stream the codes at 1.0-1.4 TB/s whatever Q, and the
+// 16-bit form adds ~0.23 ms a million rows that D does not scale (its
+// int64 combine and epilogue), so at Q <= 16 the fp32 kernel is the faster
+// below D = 512 (1M x 384, Q = 16: 0.80 against 0.77 ms).  A deeper ring
+// (16 stages), slice rows cut to Q and the streams' warps interleaved
+// across schedulers did not move it there (0.976 ms at 4 and 16 stages in
+// one process) and, as run-time parameters, cost 10-20% at Q = 1024.
 //
 // Design: one product loop, three epilogues.  The loads, the slices'
 // residency, products() and combine() are shared; the epilogue is a
@@ -90,8 +131,9 @@
 //    tiles).
 // Past that Kp segmin_i8_stream_kernel runs the same warp tiles with the
 // slices streamed beside the codes through one block-wide ring; a stage
-// holds each warp's next 32-row tile of its own unit.  wgmma/TMA and the
-// 4/16-bit forms are later work.
+// holds each warp's next 32-row tile of its own unit (8-bit codes only).
+// wgmma/TMA, the 4-bit form, the streamed 16-bit form and K4 at 16 bits
+// are later work.
 
 #include <algorithm>
 
@@ -163,10 +205,21 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// the same with unsigned B bytes (the low bytes of 16-bit codes)
+__device__ __forceinline__ void mma_s8u8(int (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
 struct Args {
   const int8_t* slices;   // (S, Q, Kp) int8
   const float* qscale;    // (Q,) power-of-two slice scale
-  const int8_t* codes;    // (N, D) int8, centered
+  const int8_t* codes;    // (N, D) int8 or int16, centered
   const float* norms;     // (N rounded up to 32,)
   const uint8_t* valid;   // (N rounded up to 32,) bool
   const float* qn2;       // (Q,) |q|^2 of the unrounded query
@@ -202,6 +255,18 @@ __device__ __forceinline__ float combine(int a0, int a1, int a2, float qlo) {
   return fmaf(fh, 4194304.f, u23_to_f32(r)) * qlo;
 }
 
+// 16-bit codes: f32(sum_s 2^(14 - 7s) (256 H_s + L_s)) * qlo, H_s and L_s
+// slice s's sums with the high and low bytes.  v is exact in int64 (|v| <
+// 2^52 for Kp <= 65,536) and __ll2float_rn rounds it once.
+__device__ __forceinline__ float combine_hilo(int h0, int h1, int h2, int l0,
+                                              int l1, int l2, float qlo) {
+  const long long v =
+      (static_cast<long long>(h0) * 256 + l0) * 16384 +
+      (static_cast<long long>(h1) * 256 + l1) * 128 +
+      (static_cast<long long>(h2) * 256 + l2);
+  return __ll2float_rn(v) * qlo;
+}
+
 // Per-thread query terms of a warp's queries qb .. qb + 16 MQ - 1: queries
 // qb + m*16 + g + 8h (C rows g, g + 8 of m16 tile m).
 struct QueryTerms {
@@ -225,17 +290,28 @@ __device__ __forceinline__ QueryTerms query_terms(const Args& a, int qb,
   return t;
 }
 
-using Acc = int[S][MQ][4][4];
+// the accumulators: one plane of S slices x MQ m16 tiles x 4 n8 tiles a
+// code byte (8-bit codes: the codes; 16-bit: the high bytes, then the low)
+template <int CB>
+using Planes = int[CB][S][MQ][4][4];
+template <int BITS>
+using Acc = Planes<BITS / 8>;
 
 // the surrogate of query row h of m16 tile m and row j*8 + tig*2 + c of
 // the warp's 32-row tile
-template <bool COSINE>
-__device__ __forceinline__ float surr(const Args& a, const Acc& acc,
+template <int CB, bool COSINE>
+__device__ __forceinline__ float surr(const Args& a, const Planes<CB>& acc,
                                       const QueryTerms& t, float vn, bool ok,
                                       int m, int h, int j, int c) {
   const int e = 2 * h + c;
-  const float raw = combine(acc[0][m][j][e], acc[1][m][j][e],
-                            acc[2][m][j][e], t.qlo[m][h]);
+  float raw;
+  if constexpr (CB == 1)
+    raw = combine(acc[0][0][m][j][e], acc[0][1][m][j][e],
+                  acc[0][2][m][j][e], t.qlo[m][h]);
+  else
+    raw = combine_hilo(acc[0][0][m][j][e], acc[0][1][m][j][e],
+                       acc[0][2][m][j][e], acc[1][0][m][j][e],
+                       acc[1][1][m][j][e], acc[1][2][m][j][e], t.qlo[m][h]);
   return scan_tile::surrogate<COSINE>(raw, a.scale, t.off[m][h], t.n2[m][h],
                                       vn, ok);
 }
@@ -265,7 +341,8 @@ struct SegMin {
         for (int p = 0; p < PER; ++p) mn[m][h][p] = __int_as_float(0x7f800000);
   }
 
-  __device__ __forceinline__ void tile(const Args& a, const Acc& acc,
+  template <int CB>
+  __device__ __forceinline__ void tile(const Args& a, const Planes<CB>& acc,
                                        const QueryTerms& t,
                                        const float (&vn)[4][2],
                                        const bool (&vok)[4][2], int qb,
@@ -281,7 +358,8 @@ struct SegMin {
           for (int c = 0; c < 2; ++c)
             mn[m][h][j / JPER] =
                 fminf(mn[m][h][j / JPER],
-                      surr<COSINE>(a, acc, t, vn[j][c], vok[j][c], m, h, j, c));
+                      surr<CB, COSINE>(a, acc, t, vn[j][c], vok[j][c], m,
+                                       h, j, c));
     }
     if constexpr (ROWS > TN) {
       if (ti != ROWS / TN - 1) return;  // the unit's last tile stores
@@ -326,7 +404,8 @@ struct Surface {
 
   __device__ __forceinline__ void begin() {}
 
-  __device__ __forceinline__ void tile(const Args& a, const Acc& acc,
+  template <int CB>
+  __device__ __forceinline__ void tile(const Args& a, const Planes<CB>& acc,
                                        const QueryTerms& t,
                                        const float (&vn)[4][2],
                                        const bool (&vok)[4][2], int qb,
@@ -345,10 +424,10 @@ struct Surface {
         for (int j = 0; j < 4; ++j) {
           const long r = unit * ROWS + j * 8 + tig * 2;
           if (r >= a.N) continue;
-          const float x = surr<COSINE>(a, acc, t, vn[j][0], vok[j][0], m, h,
-                                       j, 0);
-          const float y = surr<COSINE>(a, acc, t, vn[j][1], vok[j][1], m, h,
-                                       j, 1);
+          const float x = surr<CB, COSINE>(a, acc, t, vn[j][0], vok[j][0], m,
+                                           h, j, 0);
+          const float y = surr<CB, COSINE>(a, acc, t, vn[j][1], vok[j][1], m,
+                                           h, j, 1);
           if (pairs && r + 1 < a.N) {
             store_pair(orow + r, x, y);
           } else {
@@ -362,14 +441,15 @@ struct Surface {
 
 // acc += the warp's queries (A: rows s * arow_stride + i at `as`, pitch
 // apitch, byte column acol) x its 32 code rows (B: rows at bs, pitch
-// PITCH), over `ksteps` k32 steps; m16 tiles from `mtiles` on are skipped
-// (warp-uniform)
-__device__ __forceinline__ void products(Acc& acc, const int8_t* as,
+// PITCH), over `ksteps` k32 steps (32 bytes of B at 8 bits, 64 at 16); m16
+// tiles from `mtiles` on are skipped (warp-uniform)
+template <int BITS>
+__device__ __forceinline__ void products(Acc<BITS>& acc, const int8_t* as,
                                          int apitch, int arow_stride,
                                          int acol, const int8_t* bs,
                                          int ksteps, int mtiles, int lane) {
 #pragma unroll
-  for (int ks = 0; ks < BK / 32; ++ks) {
+  for (int ks = 0; ks < BK / (BITS / 8 * 32); ++ks) {
     if (ks >= ksteps) break;
     const int kk = ks * 32;
     // A: matrices (rows 0-7 | 8-15) x (bytes kk | kk + 16)
@@ -383,58 +463,86 @@ __device__ __forceinline__ void products(Acc& acc, const int8_t* as,
                       as + (s * arow_stride + m * 16 + (lane & 7) +
                             ((lane >> 3) & 1) * 8) * apitch +
                           acol + kk + (lane >> 4) * 16);
-    // B: n8 tiles jj, jj+1 x (bytes kk | kk + 16)
-    uint32_t bf[4][2];
+    if constexpr (BITS == 8) {
+      // B: n8 tiles jj, jj+1 x (bytes kk | kk + 16)
+      uint32_t bf[4][2];
 #pragma unroll
-    for (int jj = 0; jj < 4; jj += 2) {
-      uint32_t r[4];
-      ldmatrix_x4(r, bs + (jj * 8 + (lane & 7) + (lane >> 4) * 8) * PITCH +
-                         kk + ((lane >> 3) & 1) * 16);
-      bf[jj][0] = r[0];
-      bf[jj][1] = r[1];
-      bf[jj + 1][0] = r[2];
-      bf[jj + 1][1] = r[3];
+      for (int jj = 0; jj < 4; jj += 2) {
+        uint32_t r[4];
+        ldmatrix_x4(r, bs + (jj * 8 + (lane & 7) + (lane >> 4) * 8) * PITCH +
+                           kk + ((lane >> 3) & 1) * 16);
+        bf[jj][0] = r[0];
+        bf[jj][1] = r[1];
+        bf[jj + 1][0] = r[2];
+        bf[jj + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int s = 0; s < S; ++s)
+#pragma unroll
+        for (int m = 0; m < MQ; ++m)
+          if (m < mtiles)
+#pragma unroll
+            for (int j = 0; j < 4; ++j)
+              mma_s8(acc[0][s][m][j], af[s][m], bf[j][0], bf[j][1]);
+    } else {
+      // B, n8 tile j: its 8 rows x the four 8-code chunks of the step's 32
+      // codes; a thread gets codes 2 tig, 2 tig + 1 of each chunk, and the
+      // high (low) bytes of chunks 0-1 and 2-3 make its b0 and b1
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t r[4];
+        ldmatrix_x4(r, bs + (j * 8 + (lane & 7)) * PITCH + ks * 64 +
+                           (lane >> 3) * 16);
+        const uint32_t h0 = __byte_perm(r[0], r[1], 0x7531);
+        const uint32_t h1 = __byte_perm(r[2], r[3], 0x7531);
+        const uint32_t l0 = __byte_perm(r[0], r[1], 0x6420);
+        const uint32_t l1 = __byte_perm(r[2], r[3], 0x6420);
+#pragma unroll
+        for (int s = 0; s < S; ++s)
+#pragma unroll
+          for (int m = 0; m < MQ; ++m)
+            if (m < mtiles) {
+              mma_s8(acc[0][s][m][j], af[s][m], h0, h1);
+              mma_s8u8(acc[1][s][m][j], af[s][m], l0, l1);
+            }
+      }
     }
+  }
+}
+
+template <int CB>
+__device__ __forceinline__ void zero(Planes<CB>& acc) {
+#pragma unroll
+  for (int b = 0; b < CB; ++b)
 #pragma unroll
     for (int s = 0; s < S; ++s)
 #pragma unroll
       for (int m = 0; m < MQ; ++m)
-        if (m < mtiles)
 #pragma unroll
-          for (int j = 0; j < 4; ++j)
-            mma_s8(acc[s][m][j], af[s][m], bf[j][0], bf[j][1]);
-  }
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[b][s][m][j][e] = 0;
 }
 
-__device__ __forceinline__ void zero(Acc& acc) {
-#pragma unroll
-  for (int s = 0; s < S; ++s)
-#pragma unroll
-    for (int m = 0; m < MQ; ++m)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[s][m][j][e] = 0;
-}
-
-// code rows into rows of PITCH at dst, bytes k0 .. k0 + BK - 1, by thread
-// tid of nt: smem row i holds code row row0 + (i / 32) * rstride + i % 32
-// (rstride = 32: rows row0 .. row0 + nrows - 1).  VEC divides D, so a copy
-// is wholly inside or outside a row; rows past N and bytes past D are
-// zero-filled.
-template <int VEC>
+// code rows into rows of PITCH at dst, bytes k0 .. k0 + BK - 1 of each
+// row (BITS / 8 bytes a code), by thread tid of nt: smem row i holds code
+// row row0 + (i / 32) * rstride + i % 32 (rstride = 32: rows row0 .. row0 +
+// nrows - 1).  VEC divides the row's bytes, so a copy is wholly inside or
+// outside a row; rows past N and bytes past the row's are zero-filled.
+template <int VEC, int BITS>
 __device__ __forceinline__ void load_codes(const Args& a, int8_t* dst,
                                            long row0, int nrows, int k0,
                                            int tid, int nt,
                                            long rstride = TN) {
   constexpr int CH = BK / VEC;
+  const int rb = a.D * (BITS / 8);  // bytes of a code row
   for (int i = tid; i < nrows * CH; i += nt) {
     const int r = i / CH, c = i % CH;
     const long row = row0 + (r / TN) * rstride + r % TN;
     const int k = k0 + c * VEC;
-    const bool ok = row < a.N && k < a.D;
+    const bool ok = row < a.N && k < rb;
     copy_chunk<VEC>(dst + r * PITCH + c * VEC,
-                    ok ? a.codes + row * a.D + k : a.codes, ok);
+                    ok ? a.codes + row * rb + k : a.codes, ok);
   }
 }
 
@@ -454,10 +562,11 @@ __host__ __device__ constexpr long res_smem(int Kp) {
          static_cast<long>(NSTREAMS) * STAGES * SLOT;
 }
 
-template <int VEC, class EP>
+template <int BITS, int VEC, class EP>
 __global__ void __launch_bounds__(NTHREADS, 1)
 segmin_i8_res_kernel(const Args a, int qtiles, int ranges) {
   constexpr int UT = EP::ROWS / TN;  // 32-row tiles a unit
+  constexpr int CB = BITS / 8;       // bytes of a code
   extern __shared__ __align__(128) int8_t smem[];
   const int lane = threadIdx.x % 32;
   const int warp = threadIdx.x / 32;
@@ -499,7 +608,7 @@ segmin_i8_res_kernel(const Args a, int qtiles, int ranges) {
   const long mine = u_hi - u_lo > p
                         ? (u_hi - u_lo - p + NSTREAMS - 1) / NSTREAMS
                         : 0;
-  const int nk = (a.Kp + BK - 1) / BK;
+  const int nk = (a.Kp * CB + BK - 1) / BK;  // K stages of a tile
   const long total = mine * UT * nk;
   const int sid = wq * 32 + lane;  // thread of the stream
 
@@ -509,7 +618,7 @@ segmin_i8_res_kernel(const Args a, int qtiles, int ranges) {
     if (issued < total) {
       int8_t* st = ring + slot * SLOT;
       const long row0 = ld_u * EP::ROWS + ld_t * TN;
-      load_codes<VEC>(a, st, row0, TN, ld_k * BK, sid, 32 * WQ);
+      load_codes<VEC, BITS>(a, st, row0, TN, ld_k * BK, sid, 32 * WQ);
       if (ld_k == nk - 1 && sid < 10) {
         // the tile's norms (8 x 16 B) and validity (2 x 16 B)
         const int8_t* src =
@@ -534,7 +643,7 @@ segmin_i8_res_kernel(const Args a, int qtiles, int ranges) {
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) issue(s);
 
-  Acc acc;
+  Acc<BITS> acc;
   EP ep;
   long cu = u_lo + p;
   int ct = 0, kc = 0, slot = 0;
@@ -548,9 +657,10 @@ segmin_i8_res_kernel(const Args a, int qtiles, int ranges) {
       zero(acc);
       if (ct == 0) ep.begin();
     }
+    // stage kc holds codes kc * BK / CB ..: the slices' columns from there
     if (mtiles > 0)
-      products(acc, as_w, apitch, RBQ, kc * BK, st,
-               min(BK, a.Kp - kc * BK) / 32, mtiles, lane);
+      products<BITS>(acc, as_w, apitch, RBQ, kc * (BK / CB), st,
+                     min(BK, a.Kp * CB - kc * BK) / (32 * CB), mtiles, lane);
     if (kc == nk - 1 && mtiles > 0) {
       const float* nv = reinterpret_cast<const float*>(st + TN * PITCH);
       const uint8_t* vv =
@@ -606,8 +716,8 @@ __device__ __forceinline__ void stream_stage(const Args& a, int8_t* st,
                       : a.slices,
                    ok);
   }
-  load_codes<VEC>(a, st + SAROWS * PITCH, row0, SBN, k0, threadIdx.x,
-                  NTHREADS, rstride);
+  load_codes<VEC, 8>(a, st + SAROWS * PITCH, row0, SBN, k0, threadIdx.x,
+                     NTHREADS, rstride);
 }
 
 template <int VEC, class EP>
@@ -655,7 +765,7 @@ segmin_i8_stream_kernel(const Args a) {
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) issue(s);
 
-  Acc acc;
+  Acc<8> acc;
   EP ep;
   long cu = blockIdx.x;
   int ct = 0, kc = 0, slot = 0;
@@ -672,8 +782,8 @@ segmin_i8_stream_kernel(const Args a) {
       zero(acc);
       if (ct == 0) ep.begin();
     }
-    products(acc, st, PITCH, SBQ, 0, st + (SAROWS + warp * TN) * PITCH,
-             min(BK, a.Kp - kc * BK) / 32, mtiles, lane);
+    products<8>(acc, st, PITCH, SBQ, 0, st + (SAROWS + warp * TN) * PITCH,
+                min(BK, a.Kp - kc * BK) / 32, mtiles, lane);
     if (kc == nk - 1 && unit < nunits) {
       float vn[4][2];
       bool vok[4][2];
@@ -719,7 +829,7 @@ cudaError_t prepare(K kern, long smem, int* per_sm, int* sms) {
   return e;
 }
 
-template <int VEC, class EP>
+template <int BITS, int VEC, class EP>
 int launch(const Args& a, cudaStream_t st) {
   int dev = 0, optin = 0, per_sm = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
@@ -729,7 +839,7 @@ int launch(const Args& a, cudaStream_t st) {
   if (e != cudaSuccess) return static_cast<int>(e);
   const long smem = res_smem(a.Kp);
   if (smem <= optin) {
-    auto kern = segmin_i8_res_kernel<VEC, EP>;
+    auto kern = segmin_i8_res_kernel<BITS, VEC, EP>;
     e = prepare(kern, smem, &per_sm, &sms);
     if (e != cudaSuccess) return static_cast<int>(e);
     const int qtiles = (a.Q + RBQ - 1) / RBQ;
@@ -741,6 +851,10 @@ int launch(const Args& a, cudaStream_t st) {
                      (nunits + NSTREAMS - 1) / NSTREAMS));
     kern<<<static_cast<unsigned>(qtiles * ranges), NTHREADS, smem, st>>>(
         a, qtiles, static_cast<int>(ranges));
+  } else if constexpr (BITS != 8) {
+    // the 16-bit form is resident only (ops/scan.py routes wider rows to
+    // the fp32 kernels)
+    return static_cast<int>(cudaErrorInvalidValue);
   } else {
     auto kern = segmin_i8_stream_kernel<VEC, EP>;
     e = prepare(kern, SSMEM, &per_sm, &sms);
@@ -756,40 +870,71 @@ int launch(const Args& a, cudaStream_t st) {
 
 // by code copy width, then metric (EPC: the cosine epilogue, EPE: the
 // euclidean one)
-template <class EPC, class EPE>
+template <int BITS, class EPC, class EPE>
 int launch_all(const Args& a, bool cosine, int vec, cudaStream_t st) {
   switch (vec) {
-    case 16: return cosine ? launch<16, EPC>(a, st) : launch<16, EPE>(a, st);
-    case 4: return cosine ? launch<4, EPC>(a, st) : launch<4, EPE>(a, st);
-    case 1: return cosine ? launch<1, EPC>(a, st) : launch<1, EPE>(a, st);
+    case 16:
+      return cosine ? launch<BITS, 16, EPC>(a, st)
+                    : launch<BITS, 16, EPE>(a, st);
+    case 4:
+      return cosine ? launch<BITS, 4, EPC>(a, st)
+                    : launch<BITS, 4, EPE>(a, st);
+    case 1:
+      return cosine ? launch<BITS, 1, EPC>(a, st)
+                    : launch<BITS, 1, EPE>(a, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <int SEGL>
-int launch_segmin(const Args& a, bool cosine, int vec, cudaStream_t st) {
-  return launch_all<SegMin<SEGL, true>, SegMin<SEGL, false>>(a, cosine, vec,
-                                                             st);
+int launch_segmin(const Args& a, int bits, bool cosine, int vec,
+                  cudaStream_t st) {
+  using EPC = SegMin<SEGL, true>;
+  using EPE = SegMin<SEGL, false>;
+  return bits == 16 ? launch_all<16, EPC, EPE>(a, cosine, vec, st)
+                    : launch_all<8, EPC, EPE>(a, cosine, vec, st);
 }
 
 template <typename OutT>
 int launch_surface(const Args& a, bool cosine, int vec, cudaStream_t st) {
-  return launch_all<Surface<OutT, true>, Surface<OutT, false>>(a, cosine,
-                                                               vec, st);
+  return launch_all<8, Surface<OutT, true>, Surface<OutT, false>>(
+      a, cosine, vec, st);
 }
 
-bool bad_shape(int D, int Kp) {
-  return Kp % 32 || Kp < D || D > (1 << 17);
+// Kp: D rounded up to 32; int32 sums need D <= 2^17 (8-bit) and Kp <=
+// 65,536 (16-bit: the low bytes' sums)
+bool bad_shape(int D, int Kp, int bits) {
+  return Kp % 32 || Kp < D || D > (1 << 17) || (bits != 8 && bits != 16) ||
+         (bits == 16 && Kp > (1 << 16));
 }
 
 }  // namespace
 
+// the widest 16-bit rows (D) the int8 route takes on the current device:
+// the largest Kp whose resident slices and rings fit a block's shared
+// memory (992 on the H100), within the low bytes' int32 limit; 0, or a
+// cudaError_t from the device queries
+extern "C" int segmin_i8_hilo_max_dims(int* dims) {
+  int dev = 0, optin = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                               dev);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  int kp = 0;
+  while (kp + 32 <= (1 << 16) && res_smem(kp + 32) <= optin) kp += 32;
+  *dims = kp;
+  return 0;
+}
+
 // C entry points (bound with ctypes).  slices (S, Q, Kp) int8 and qscale
-// (Q,) f32 come from ops/scan.py::slice_queries; qn2 and qsum are |q|^2 and
-// sum(q) of the unrounded f32 queries; codes are (N, D) int8 with
-// D <= 2^17; norms and valid start 16-byte aligned and hold N rounded up to
-// a multiple of 32 entries (the pad rows are never stored); vec (16, 4 or
-// 1) is the code copy width, which must divide D and the codes' address.
+// (Q,) f32 come from ops/scan.py::slice_queries (at 16 bits with each
+// 32-dim block of K in ops/scan.py::hilo_order); qn2 and qsum are |q|^2
+// and sum(q) of the unrounded f32 queries; codes are (N, D) int8 (bits 8,
+// D <= 2^17) or int16 (bits 16, Kp <= 65,536, segment minima only); norms
+// and valid start 16-byte aligned and hold N rounded up to a multiple of
+// 32 entries (the pad rows are never stored); vec (16, 4 or 1) is the code
+// copy width, which must divide a row's bytes and the codes' address.
 // Each returns cudaGetLastError() after the launch.
 
 // K1/K5/K6: out (Q, N / seg) f32, seg in {16, 32, 64, 128} dividing N
@@ -797,35 +942,36 @@ extern "C" int segmin_i8_launch(const int8_t* slices, const float* qscale,
                                 const int8_t* codes, const float* norms,
                                 const uint8_t* valid, const float* qn2,
                                 const float* qsum, float* out, int Q, long N,
-                                int D, int Kp, int cosine, float scale,
-                                float offset, int seg, int vec,
+                                int D, int Kp, int bits, int cosine,
+                                float scale, float offset, int seg, int vec,
                                 void* stream) {
   if (Q <= 0 || N <= 0) return 0;
-  if (bad_shape(D, Kp) || seg <= 0 || N % seg)
+  if (bad_shape(D, Kp, bits) || seg <= 0 || N % seg)
     return static_cast<int>(cudaErrorInvalidValue);
   const Args a{slices, qscale, codes, norms, valid, qn2, qsum, out,
                Q,      N,      D,     Kp,    scale, offset};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool cosn = cosine != 0;
   switch (seg) {
-    case 16: return launch_segmin<16>(a, cosn, vec, st);
-    case 32: return launch_segmin<32>(a, cosn, vec, st);
-    case 64: return launch_segmin<64>(a, cosn, vec, st);
-    case 128: return launch_segmin<128>(a, cosn, vec, st);
+    case 16: return launch_segmin<16>(a, bits, cosn, vec, st);
+    case 32: return launch_segmin<32>(a, bits, cosn, vec, st);
+    case 64: return launch_segmin<64>(a, bits, cosn, vec, st);
+    case 128: return launch_segmin<128>(a, bits, cosn, vec, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
-// K4: out (Q, N) f32 when out_bf16 == 0, else bf16; any N
+// K4: out (Q, N) f32 when out_bf16 == 0, else bf16; any N; 8-bit codes
 extern "C" int surface_i8_launch(const int8_t* slices, const float* qscale,
                                  const int8_t* codes, const float* norms,
                                  const uint8_t* valid, const float* qn2,
                                  const float* qsum, void* out, int Q, long N,
-                                 int D, int Kp, int cosine, float scale,
-                                 float offset, int out_bf16, int vec,
-                                 void* stream) {
+                                 int D, int Kp, int bits, int cosine,
+                                 float scale, float offset, int out_bf16,
+                                 int vec, void* stream) {
   if (Q <= 0 || N <= 0) return 0;
-  if (bad_shape(D, Kp)) return static_cast<int>(cudaErrorInvalidValue);
+  if (bad_shape(D, Kp, bits) || bits != 8)
+    return static_cast<int>(cudaErrorInvalidValue);
   const Args a{slices, qscale, codes, norms, valid, qn2, qsum, out,
                Q,      N,      D,     Kp,    scale, offset};
   cudaStream_t st = static_cast<cudaStream_t>(stream);

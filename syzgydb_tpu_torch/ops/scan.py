@@ -1,8 +1,8 @@
 """Exhaustive scans: the wrappers of kernels K1 and K5/K6 (segment minima;
-``csrc/segmin_i8.cu`` for 8-bit codes, ``csrc/segmin.cu`` for the other
-widths) and K4 (the full surface; ``csrc/segmin_i8.cu`` for 8-bit codes,
-``csrc/surface.cu`` for the other widths), their plain PyTorch versions,
-and the provable select-and-rerank stage — the port of
+``csrc/segmin_i8.cu`` for 8- and 16-bit codes, ``csrc/segmin.cu`` for the
+other widths) and K4 (the full surface; ``csrc/segmin_i8.cu`` for 8-bit
+codes, ``csrc/surface.cu`` for the other widths), their plain PyTorch
+versions, and the provable select-and-rerank stage — the port of
 ``syzgydb_tpu/ops/pallas_scan.py``.  ``_route`` is the one dispatch rule.
 
 Two phases, as in the JAX package:
@@ -33,10 +33,12 @@ every width, so the f32-surface tie margin (6) applies to high and exact
 alike.  A CUDA tensor launches the kernel (or raises); a CPU tensor runs
 the plain version.  The fp32 kernels run at a query tile sized to the batch
 (fp32_query_tile: 16, 32, 64 or 128 queries), the same sums in the same
-order at every tile.  The 8-bit route of K1, K5/K6 and K4 multiplies int8
-slices of the query (slice_queries) on tensor cores, so its surfaces also
-carry the slicing error dq_rel, which the flags' bound (surface_delta)
-takes wherever that route ran (fused_scan_topk and surface_topk alike).
+order at every tile.  The int8 route (K1, K5/K6 and K4 on 8-bit codes; K1
+and K5/K6 on 16-bit codes, each code split into a high and a low byte)
+multiplies int8 slices of the query (slice_queries) on tensor cores, so its
+surfaces also carry the slicing error dq_rel, which the flags' bound
+(surface_delta) takes wherever that route ran (fused_scan_topk and
+surface_topk alike).
 """
 
 from __future__ import annotations
@@ -82,21 +84,33 @@ GATHER_BUDGET_BYTES = 1 << 30
 KERNEL_SEGS = (16, 32, 64, 128)
 
 # plain-integer counters (reset by callers): each kernel's count of
-# launches by either route, of those by its int8 route (8-bit codes), and
-# the rerank's rows
+# launches by either route, of those by its int8 route, and the rerank's
+# rows
 launches = 0              # K1: segment minima at DEFAULT_SEG
 i8_launches = 0
 free_seg_launches = 0     # K5/K6: segment minima at seg 16, 64 or 128
 i8_free_seg_launches = 0
+i8_hilo_launches = 0      # segmin_i8_launch calls on 16-bit codes (K1, K5/K6)
 surface_launches = 0      # K4: the full surface
 i8_surface_launches = 0
 rerank_rows = 0           # candidate rows decoded and reranked
 
 # the int8 route: query slices (the S csrc/segmin_i8.cu is built for), and
 # the widest D whose int32 slice sums cannot overflow
-# (|sum| <= 127 * 128 * Kp < 2^31)
+# (|sum| <= 127 * 128 * Kp < 2^31); the widest 16-bit rows it takes are
+# the kernel's to say (hilo_max_dims)
 I8_SLICES = 3
 I8_MAX_DIMS = 1 << 17
+# 16-bit K1 and K5/K6 batches of at most I8_HILO_SMALL_Q queries (the fp32
+# kernels' smallest query tile) on rows narrower than I8_HILO_SMALL_Q_DIMS
+# take the fp32 kernels: both stream the codes there, and the int8 form's
+# cost a row that does not scale with D (its int64 combine and epilogue)
+# outweighs its cheaper products.  fp32 over int8 time at 1M rows, Q 1-16,
+# on the H100: 0.70-0.75 at D = 128, 0.95-0.97 at 384, 0.99-1.01 at 512,
+# 1.03-1.08 at 640-960; past Q = 16 the int8 form is 1.0-2.2x faster at
+# every D.
+I8_HILO_SMALL_Q = 16
+I8_HILO_SMALL_Q_DIMS = 512
 
 _CODE_DTYPES = {4: torch.uint8, 8: torch.int8, 16: torch.int16,
                 32: torch.float32, 64: torch.float32}
@@ -298,16 +312,45 @@ def _launch_fp32(name: str, out, last: int, queries, codes, norms, valid, *,
     cuda_build.check(rc, name)
 
 
-def _route(codes, bits: int) -> str:
-    """Which version of K1, K5/K6 and K4 runs on `codes` — this module's one
-    dispatch rule, by device and width:
+_hilo_max_dims: dict[int, int] = {}
+
+
+def hilo_max_dims(device) -> int:
+    """The widest 16-bit rows (D) the int8 route takes on CUDA `device`, as
+    csrc/segmin_i8.cu's resident-slice kernel decides it: the widest whose
+    slices (3 x 64 query rows x (Kp + 16) bytes) and two code rings fit a
+    block's shared memory, within the low bytes' int32 sums (Kp <= 65,536);
+    992 on the H100.  Asked of the kernel library once a device."""
+    idx = torch.device(device).index
+    idx = torch.cuda.current_device() if idx is None else idx
+    if idx not in _hilo_max_dims:
+        dims = ctypes.c_int(0)
+        fn = cuda_build.entry("segmin_i8", "segmin_i8_hilo_max_dims",
+                              [ctypes.POINTER(ctypes.c_int)])
+        with torch.cuda.device(idx):
+            cuda_build.check(fn(ctypes.byref(dims)), "segmin_i8_hilo_max_dims")
+        _hilo_max_dims[idx] = dims.value
+    return _hilo_max_dims[idx]
+
+
+def _route(codes, bits: int, kernel: str, q: int) -> str:
+    """Which version of `kernel` ("segmin": K1 and K5/K6; "surface": K4)
+    runs on `codes` for `q` queries — this module's one dispatch rule, by
+    device, width, kernel and shape:
 
       * "plain": CPU tensors, the plain PyTorch versions;
-      * "i8": 8-bit codes on CUDA, the int8 tensor-core route
-        (csrc/segmin_i8.cu) at every segment length of KERNEL_SEGS and for
-        K4's f32 and bf16 surfaces; its outputs carry slice_queries' dq_rel;
-      * "fp32": every other width on CUDA, the fp32 kernels
-        (csrc/segmin.cu, csrc/surface.cu).
+      * "i8": the int8 tensor-core route (csrc/segmin_i8.cu), whose outputs
+        carry slice_queries' dq_rel: 8-bit codes on CUDA, both kernels, at
+        every segment length of KERNEL_SEGS and for K4's f32 and bf16
+        surfaces; 16-bit codes on CUDA, K1 and K5/K6 at D <= hilo_max_dims
+        (each code split into a high and a low byte in the kernel's load),
+        but for batches of at most I8_HILO_SMALL_Q queries on rows narrower
+        than I8_HILO_SMALL_Q_DIMS;
+      * "fp32": everything else on CUDA, the fp32 kernels (csrc/segmin.cu,
+        csrc/surface.cu): 4-, 32- and 64-bit codes, K4 on 16-bit codes,
+        16-bit rows past hilo_max_dims, which the int8 route's
+        resident-slice kernel cannot hold, and the small 16-bit batches on
+        narrow rows above, where the fp32 kernel is the faster.
 
     Not a fallback: a build or launch failure of the chosen kernel raises,
     and so does a shape it cannot take (D > I8_MAX_DIMS on the int8
@@ -316,7 +359,12 @@ def _route(codes, bits: int) -> str:
         return "plain"
     if codes.device.type != "cuda":
         raise ValueError(f"unsupported device {codes.device}")
-    return "i8" if bits == 8 else "fp32"
+    d = codes.shape[1]
+    if bits == 8 or (bits == 16 and kernel == "segmin" and
+                     (q > I8_HILO_SMALL_Q or d >= I8_HILO_SMALL_Q_DIMS) and
+                     d <= hilo_max_dims(codes.device)):
+        return "i8"
+    return "fp32"
 
 
 def _check_kernel_seg(seg: int) -> None:
@@ -367,6 +415,18 @@ def slice_queries(queries):
     return slices.contiguous(), scale.to(torch.float32), dq32
 
 
+def hilo_order(slices):
+    """slice_queries' (S, Q, Kp) slices in the K order csrc/segmin_i8.cu's
+    16-bit form multiplies them in: within each 32-dim block, slot p holds
+    dim (p & 16) + 8 bit1(p) + 2 ((p >> 2) & 3) + bit0(p), the order in
+    which one ldmatrix.x4 and a byte permute hand a thread the high (low)
+    bytes of its row's codes.  The same permutation of every slice and
+    every code leaves each dot unchanged."""
+    s, q, kp = slices.shape
+    return slices.reshape(s, q, kp // 32, 2, 2, 4, 2).permute(
+        0, 1, 2, 3, 5, 4, 6).reshape(s, q, kp).contiguous()
+
+
 def unslice_queries(slices, scale):
     """q_hat (Q, K) in f64 (exact) from slice_queries' (S, Q, K) slices and
     (Q,) scale."""
@@ -377,15 +437,16 @@ def unslice_queries(slices, scale):
     return qhat * scale.to(torch.float64)[:, None]
 
 
-def i8_term_scale(qn2, norms, valid, *, metric: str, dims: int):
+def i8_term_scale(qn2, norms, valid, *, metric: str, dims: int, bits: int):
     """Per-query T such that every f32 rounding of the int8 route's epilogue
     (the raw dot, the f32 affine constants, the products and sums,
     rsqrtf's 2 ulps) errs by at most one f32 ulp of a term bounded by T:
     the route lies within 4 * 2^-24 * T of an exact evaluation of the same
     formula on q_hat with the same qn2 and qsum (segment_min_scan_plain,
     float64, query_terms).  Each term is bounded through |q_hat . (v - off)|
-    + |off * qsum| <= |q| (|v| + 2 offd), offd = |offset| sqrt(D)."""
-    offd = abs(qz.affine_constants(8)[1]) * float(dims) ** 0.5
+    + |off * qsum| <= |q| (|v| + 2 offd), offd = |offset| sqrt(D), the
+    offset of the codes' width `bits` (8 or 16)."""
+    offd = abs(qz.affine_constants(bits)[1]) * float(dims) ** 0.5
     if metric == "euclidean":
         vmax = torch.where(valid, norms, torch.zeros_like(norms)).max()
         return qn2 + 4.0 * qn2.sqrt() * (vmax.sqrt() + 2.0 * offd) + vmax
@@ -396,26 +457,28 @@ def i8_term_scale(qn2, norms, valid, *, metric: str, dims: int):
 
 
 # segmin_i8_launch and surface_i8_launch: eight pointers (slices, qscale,
-# codes, norms, valid, qn2, qsum, out), Q, N, D, Kp, cosine, scale, offset,
-# then seg (segmin) or out_bf16 (surface), vec, and the stream
+# codes, norms, valid, qn2, qsum, out), Q, N, D, Kp, bits, cosine, scale,
+# offset, then seg (segmin) or out_bf16 (surface), vec, and the stream
 _I8_ENTRY_ARGTYPES = [ctypes.c_void_p] * 8 + [
     ctypes.c_int, ctypes.c_long, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
+    ctypes.c_int, ctypes.c_float, ctypes.c_float, ctypes.c_int, ctypes.c_int,
     ctypes.c_void_p]
 
 
 def _launch_i8(symbol: str, out, last: int, queries, codes, norms, valid,
-               metric: str):
+               metric: str, bits: int):
     """Launch `symbol` of csrc/segmin_i8.cu (segmin_i8_launch with `last` =
-    seg, surface_i8_launch with `last` = out_bf16) into `out` on 8-bit
-    codes -> slice_queries' dq_rel."""
+    seg, surface_i8_launch with `last` = out_bf16) into `out` on 8-bit or
+    (segmin_i8_launch) 16-bit codes -> slice_queries' dq_rel."""
     q, d = queries.shape
     if d > I8_MAX_DIMS:
         raise ValueError(f"D={d} exceeds the int8 route's {I8_MAX_DIMS} "
                          f"dims (int32 slice sums could overflow)")
     _, qn2, qsum, _, scale, offset = _kernel_operands(queries, codes, norms,
-                                                      valid, 8)
+                                                      valid, bits)
     slices, qscale, dq_rel = slice_queries(queries)
+    if bits == 16:
+        slices = hilo_order(slices)
     n = codes.shape[0]
     # the kernel reads norms and validity in whole 32-row tiles, 16 bytes
     # at a time: pad rows are invalid (and never stored), starts aligned
@@ -426,25 +489,30 @@ def _launch_i8(symbol: str, out, last: int, queries, codes, norms, valid,
     norms, valid = (t if t.data_ptr() % 16 == 0 else t.clone()
                     for t in (norms, valid))
     # code copy width: 16-byte cp.async where every row start allows it
+    row_bytes = d * codes.element_size()
     ptr = codes.data_ptr()
-    vec = next(v for v in (16, 4, 1) if d % v == 0 and ptr % v == 0)
+    vec = next(v for v in (16, 4, 1) if row_bytes % v == 0 and ptr % v == 0)
     fn = cuda_build.entry("segmin_i8", symbol, _I8_ENTRY_ARGTYPES)
     rc = fn(slices.data_ptr(), qscale.data_ptr(), ptr, norms.data_ptr(),
             valid.data_ptr(), qn2.data_ptr(), qsum.data_ptr(), out.data_ptr(),
-            q, n, d, slices.shape[2], int(metric != "euclidean"), scale,
-            offset, last, vec, cuda_build.launch_stream(codes.device))
+            q, n, d, slices.shape[2], bits, int(metric != "euclidean"),
+            scale, offset, last, vec, cuda_build.launch_stream(codes.device))
     cuda_build.check(rc, symbol)
     return dq_rel
 
 
-def _segmin_i8(queries, codes, norms, valid, *, metric: str, seg: int):
-    """K1 (seg 32) and K5/K6 (seg 16, 64, 128) on the int8 route ->
-    (segmins, dq_rel)."""
+def _segmin_i8(queries, codes, norms, valid, *, bits: int, metric: str,
+               seg: int):
+    """K1 (seg 32) and K5/K6 (seg 16, 64, 128) on the int8 route, 8- or
+    16-bit codes -> (segmins, dq_rel)."""
     global launches, i8_launches, free_seg_launches, i8_free_seg_launches
+    global i8_hilo_launches
     out = torch.empty((queries.shape[0], codes.shape[0] // seg),
                       dtype=torch.float32, device=codes.device)
     dq_rel = _launch_i8("segmin_i8_launch", out, seg, queries, codes, norms,
-                        valid, metric)
+                        valid, metric, bits)
+    if bits == 16:
+        i8_hilo_launches += 1
     if seg == DEFAULT_SEG:
         launches += 1
         i8_launches += 1
@@ -477,14 +545,14 @@ def _segment_min(queries, codes, norms, valid, *, bits: int, metric: str,
     """segment_min_scan -> (segmins, dq_rel): dq_rel is slice_queries'
     (Q,) query-slicing error where the int8 route ran, else None."""
     _check_scan_args(queries, codes, norms, valid, bits, seg)
-    route = _route(codes, bits)
+    route = _route(codes, bits, "segmin", queries.shape[0])
     if route == "plain":
         return segment_min_scan_plain(queries, codes, norms, valid, bits=bits,
                                       metric=metric, seg=seg), None
     _check_kernel_seg(seg)
     if route == "i8":
-        return _segmin_i8(queries, codes, norms, valid, metric=metric,
-                          seg=seg)
+        return _segmin_i8(queries, codes, norms, valid, bits=bits,
+                          metric=metric, seg=seg)
     return segmin_fp32(queries, codes, norms, valid, bits=bits,
                        metric=metric, seg=seg), None
 
@@ -496,9 +564,10 @@ def segment_min_scan(queries, codes, norms, valid, *, bits: int, metric: str,
 
     CUDA tensors on the current device launch the kernel `_route` picks at
     seg 16, 32, 64 or 128 (K1 at 32, the K5/K6 port at the others): 8-bit
-    codes the int8 tensor-core route, whose error carries slice_queries'
-    dq_rel; other widths the fp32 kernel.  CPU tensors take the plain
-    version at any seg."""
+    codes, and 16-bit codes up to hilo_max_dims (but small batches on
+    narrow rows), the int8 tensor-core route, whose error carries
+    slice_queries' dq_rel; other widths and shapes the fp32 kernel.  CPU
+    tensors take the plain version at any seg."""
     return _segment_min(queries, codes, norms, valid, bits=bits,
                         metric=metric, seg=seg)[0]
 
@@ -513,7 +582,7 @@ def _surface_i8(queries, codes, norms, valid, *, metric: str, exact: bool):
     out = torch.empty((queries.shape[0], codes.shape[0]), device=codes.device,
                       dtype=torch.float32 if exact else torch.bfloat16)
     dq_rel = _launch_i8("surface_i8_launch", out, int(not exact), queries,
-                        codes, norms, valid, metric)
+                        codes, norms, valid, metric, 8)
     surface_launches += 1
     i8_surface_launches += 1
     return out, dq_rel
@@ -539,7 +608,7 @@ def _score_surface(queries, codes, norms, valid, *, bits: int, metric: str,
     """score_surface -> (surface, dq_rel): dq_rel is slice_queries' (Q,)
     query-slicing error where the int8 route ran, else None."""
     _check_scan_args(queries, codes, norms, valid, bits, 1)
-    route = _route(codes, bits)
+    route = _route(codes, bits, "surface", queries.shape[0])
     if route == "plain":
         return score_surface_plain(queries, codes, norms, valid, bits=bits,
                                    metric=metric, exact=exact), None
@@ -630,7 +699,8 @@ def surface_delta(qn2, norms, valid, *, metric: str, dims: int,
     code-split (dc_rel) term, as its exact surface uses.  The int8 route
     takes exact integer products of the sliced query q_hat, so its bound is
     the reference's form (pallas_scan.surface_delta) with slice_queries'
-    (Q,) `dq_rel` and dc_rel = 0 (8-bit codes are exact in int8): the
+    (Q,) `dq_rel` and dc_rel = 0 (8-bit codes are exact in int8, 16-bit
+    codes in their high and low bytes): the
     query-rounding term couples to v - offset*1 through the unrounded qsum,
     |err| <= dq_rel ||q|| (||v|| + |offset| sqrt(D)), plus the cushion.
     `bits` (the codes' width, for the offset) goes with `dq_rel`."""

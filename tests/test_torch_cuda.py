@@ -8,14 +8,16 @@ on a GPU machine without JAX it runs as
 Tolerances: the segment minima of K1/K5/K6 and K4's f32 surface must lie
 within the completeness flag's own error bound (surface_delta: the f32
 accumulation cushion, as the fp32 kernels round neither queries nor codes,
-plus the query-slicing error dq_rel on K1's int8 route) of an f64
-evaluation of the same formula, with identical +inf positions; K1's int8
-route also within 4 f32 ulps of the surrogate's terms (i8_term_scale) of
-an f64 evaluation on its sliced queries q_hat, which a fault in the
-fragment layout would break; K4's bf16 surface within its bound plus half
+plus the query-slicing error dq_rel on the int8 route) of an f64
+evaluation of the same formula, with identical +inf positions; the int8
+route (8-bit codes, and 16-bit codes split into high and low bytes) also
+within 4 f32 ulps of the surrogate's terms (i8_term_scale) of an f64
+evaluation on its sliced queries q_hat, which a fault in the fragment
+layout would break; K4's bf16 surface within its bound plus half
 a bf16 ulp of the value; K2's (f32 and bf16) and K3's integer counts must
 match exactly."""
 
+import functools
 import importlib.util
 import os
 
@@ -57,6 +59,46 @@ def _corpus(bits, n, d, q, seed, zero_query=True, dead=(64, 96)):
     return queries, codes, norms, valid
 
 
+def _worst_rows(codes, norms):
+    """16-bit codes: rows 1-5 at the extremes of the high/low split (every
+    code -32768, every code 32767, low byte 255 under high bytes -128, 0
+    and -1), their norms recomputed as the ingest does (f64, rounded to
+    f32)."""
+    for r, c in enumerate((-32768, 32767, -32513, 255, -1), start=1):
+        codes[r] = c
+    scale, offset = scan.qz.affine_constants(16)
+    vals = codes[1:6].astype(np.float64) * scale + offset
+    norms[1:6] = np.float32((vals ** 2).sum(1))
+    return codes, norms
+
+
+@functools.lru_cache(maxsize=4)
+def _hilo_rows(n, d, dead):
+    """(codes, norms, valid) of _corpus at 16 bits with _worst_rows, made
+    once per shape: the 16-bit cases share their rows across Q, metric and
+    segment length (ingesting 262,144 x 992 rows takes seconds)."""
+    _, codes, norms, valid = _corpus(16, n, d, 1, seed=n + d, dead=dead)
+    return (*_worst_rows(codes, norms), valid)
+
+
+def _i8_corpus(bits, n, d, q, seed, zero_query=True, dead=(64, 96)):
+    """_corpus for the int8 route; at 16 bits _hilo_rows' rows, with the
+    queries drawn from `seed`."""
+    if bits == 8:
+        return _corpus(bits, n, d, q, seed, zero_query, dead)
+    rng = np.random.default_rng(seed)
+    queries = np.float32(rng.uniform(-1, 1, size=(q, d)))
+    if zero_query:
+        queries[0] = 0.0
+    return (queries, *_hilo_rows(n, d, dead))
+
+
+def _takes_i8(bits, d, q):
+    """Whether K1 and K5/K6 take the int8 route: 8-bit codes, and 16-bit
+    rows up to 992 dims but for Q <= 16 on rows narrower than 512."""
+    return bits == 8 or (bits == 16 and d <= 992 and (q > 16 or d >= 512))
+
+
 # the fp32 kernels' query tiles at their edges (Q = 1, 16, 17, 64, 65),
 # on N that is no multiple of a row tile (128, 256, 512 rows)
 _TILE_EDGES = [(1, 384), (16, 384), (17, 100), (64, 384), (65, 48)]
@@ -72,12 +114,14 @@ def test_segmin_kernel_matches_plain(cuda, bits, metric, n, d, q):
                       for a in (queries, codes, norms, valid))
     before = (scan.launches, scan.i8_launches)
     got = scan.segment_min_scan(tq, tc, tn, tv, bits=bits, metric=metric)
-    # 8-bit codes at seg 32 take the int8 route, the rest the fp32 kernel
+    # 8- and 16-bit codes at seg 32 (16 bits: D <= 992, but Q <= 16 on
+    # rows narrower than 512) take the int8 route, the rest the fp32 kernel
+    i8 = _takes_i8(bits, d, q)
     assert (scan.launches, scan.i8_launches) == \
-        (before[0] + 1, before[1] + (bits == 8))
+        (before[0] + 1, before[1] + i8)
     want = scan.segment_min_scan_plain(tq, tc, tn, tv, bits=bits,
                                        metric=metric, dtype=torch.float64)
-    dq_rel = scan.slice_queries(tq)[2] if bits == 8 else None
+    dq_rel = scan.slice_queries(tq)[2] if i8 else None
     delta = scan.surface_delta(tq.square().sum(-1), tn, tv, metric=metric,
                                dims=d, dq_rel=dq_rel, bits=bits)
     assert torch.equal(torch.isinf(got), torch.isinf(want))
@@ -87,37 +131,41 @@ def test_segmin_kernel_matches_plain(cuda, bits, metric, n, d, q):
     assert (err[fin] <= bound[fin]).all()
 
 
+# the 16-bit form of the int8 route at the cell's widths and its edges:
+# the largest resident D (992), row tails (N not a multiple of 128 or of a
+# block's rows), Q at and past an m16 tile and a 64-query block
+_HILO_Q = (1, 16, 17, 1024)
+_HILO_K1 = [(16, n, d, q, True) for n in (4160, 262144) for d in (960, 992)
+            for q in _HILO_Q]
+
+
 @pytest.mark.parametrize("metric", ["euclidean", "cosine"])
-@pytest.mark.parametrize("n,d,q,zero_query", [
-    (4096, 384, 130, True), (1056, 33, 3, True), (2048, 768, 17, True),
-    (4096, 100, 1, False), (4096, 100, 1, True), (4096, 48, 40, True),
+@pytest.mark.parametrize("bits,n,d,q,zero_query", [
+    (8, 4096, 384, 130, True), (8, 1056, 33, 3, True),
+    (8, 2048, 768, 17, True), (8, 4096, 100, 1, False),
+    (8, 4096, 100, 1, True), (8, 4096, 48, 40, True),
     # past the resident kernel's shared memory: the streamed-slice kernel
-    (2080, 800, 5, True), (1024, 1504, 70, True)])
-def test_i8_segmin_kernel_tight_on_q_hat(cuda, metric, n, d, q, zero_query):
+    (8, 2080, 800, 5, True), (8, 1024, 1504, 70, True)] + _HILO_K1)
+def test_i8_segmin_kernel_tight_on_q_hat(cuda, metric, bits, n, d, q,
+                                         zero_query):
     """The int8 route against an f64 evaluation of the same formula on its
     sliced queries q_hat with the unrounded |q|^2 and sum: within 4 f32
     ulps of the surrogate's terms, identical +inf positions (invalid rows,
-    a wholly invalid segment; zero rows and a zero query ride along)."""
-    queries, codes, norms, valid = _corpus(8, n, d, q, seed=n + d + q,
-                                           zero_query=zero_query)
+    a wholly invalid segment; zero rows and a zero query ride along; at 16
+    bits rows at the extremes of the high/low split); two launches
+    bit-identical."""
+    queries, codes, norms, valid = _i8_corpus(bits, n, d, q, seed=n + d + q,
+                                              zero_query=zero_query)
     tq, tc, tn, tv = (torch.from_numpy(a).to(cuda)
                       for a in (queries, codes, norms, valid))
-    before = scan.i8_launches
-    got = scan.segment_min_scan(tq, tc, tn, tv, bits=8, metric=metric)
-    assert scan.i8_launches == before + 1
-    slices, scale, _ = scan.slice_queries(tq)
-    qhat = scan.unslice_queries(slices, scale)[:, :d]
-    qn2 = tq.square().sum(-1)
-    want = scan.segment_min_scan_plain(qhat, tc, tn, tv, bits=8,
-                                       metric=metric, dtype=torch.float64,
-                                       query_terms=(qn2, tq.sum(-1)))
-    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    before = (scan.i8_launches, scan.i8_hilo_launches)
+    got = scan.segment_min_scan(tq, tc, tn, tv, bits=bits, metric=metric)
+    assert (scan.i8_launches, scan.i8_hilo_launches) == \
+        (before[0] + 1, before[1] + (bits == 16))
     assert torch.isinf(got[:, 2]).all()  # rows 64..95: a wholly invalid segment
-    tol = 4 * 2.0 ** -24 * scan.i8_term_scale(qn2, tn, tv, metric=metric,
-                                              dims=d).double()[:, None]
-    fin = torch.isfinite(want)
-    err = (got.double() - want).abs()
-    assert (err[fin] <= tol.expand_as(err)[fin]).all()
+    _tight_on_q_hat(got, tq, tc, tn, tv, metric, d, seg=32, bits=bits)
+    assert torch.equal(got, scan.segment_min_scan(tq, tc, tn, tv, bits=bits,
+                                                  metric=metric))
 
 
 def test_i8_route_rejects_what_it_cannot_take(cuda):
@@ -128,13 +176,53 @@ def test_i8_route_rejects_what_it_cannot_take(cuda):
             torch.ones(n, dtype=torch.bool, device=cuda))
     with pytest.raises(ValueError, match="int8 route"):
         scan.segment_min_scan(*args, bits=8, metric="cosine")
+    # 16 bits: the low bytes' int32 sums bound Kp to 65,536, and the
+    # kernel's shape check refuses wider rows
+    d = (1 << 16) + 32
+    args = (torch.zeros((1, d), device=cuda),
+            torch.zeros((n, d), dtype=torch.int16, device=cuda),
+            torch.zeros(n, device=cuda),
+            torch.ones(n, dtype=torch.bool, device=cuda))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        scan._segmin_i8(*args, bits=16, metric="cosine", seg=32)
+    # and its form is resident only: the kernel refuses rows whose slices
+    # do not fit shared memory rather than streaming them
+    d = 1024
+    args = (torch.zeros((1, d), device=cuda),
+            torch.zeros((n, d), dtype=torch.int16, device=cuda),
+            torch.zeros(n, device=cuda),
+            torch.ones(n, dtype=torch.bool, device=cuda))
+    with pytest.raises(RuntimeError, match="launch failed"):
+        scan._segmin_i8(*args, bits=16, metric="cosine", seg=32)
 
 
-def _within_delta(got, want, tq, tn, tv, metric, d, extra=None, bits=None):
+@pytest.mark.parametrize("seg", [32, 128])
+def test_16bit_rows_past_992_take_the_fp32_kernel(cuda, seg):
+    """16-bit rows wider than hilo_max_dims (992 on the H100, as the kernel
+    library reports it) stay on the fp32 kernel (csrc/segmin.cu), within
+    its bound of the f64 plain version."""
+    assert scan.hilo_max_dims(cuda) == 992
+    d = scan.hilo_max_dims(cuda) + 8
+    queries, codes, norms, valid = _corpus(16, 1024, d, 17, seed=seg)
+    tq, tc, tn, tv = (torch.from_numpy(a).to(cuda)
+                      for a in (queries, codes, norms, valid))
+    before = (scan.launches + scan.free_seg_launches, scan.i8_launches,
+              scan.i8_free_seg_launches)
+    got = scan.segment_min_scan(tq, tc, tn, tv, bits=16, metric="euclidean",
+                                seg=seg)
+    assert (scan.launches + scan.free_seg_launches, scan.i8_launches,
+            scan.i8_free_seg_launches) == (before[0] + 1,) + before[1:]
+    want = scan.segment_min_scan_plain(tq, tc, tn, tv, bits=16,
+                                       metric="euclidean", seg=seg,
+                                       dtype=torch.float64)
+    _within_delta(got, want, tq, tn, tv, "euclidean", d)
+
+
+def _within_delta(got, want, tq, tn, tv, metric, d, extra=None, bits=None,
+                  dq_rel=None):
     """got (kernel) against want (plain, f64): identical +inf positions,
-    finite errors within surface_delta (+ `extra`, elementwise); at 8 bits
-    (the int8 route) with slice_queries' dq_rel."""
-    dq_rel = scan.slice_queries(tq)[2] if bits == 8 else None
+    finite errors within surface_delta (+ `extra`, elementwise); on the
+    int8 route with slice_queries' `dq_rel` and the codes' `bits`."""
     delta = scan.surface_delta(tq.square().sum(-1), tn, tv, metric=metric,
                                dims=d, dq_rel=dq_rel, bits=bits)
     assert torch.equal(torch.isinf(got), torch.isinf(want))
@@ -159,14 +247,17 @@ def test_free_seg_segmin_kernel_matches_plain(cuda, bits, seg, n, d, q):
               scan.i8_free_seg_launches)
     got = scan.segment_min_scan(tq, tc, tn, tv, bits=bits, metric=metric,
                                 seg=seg)
-    # 8-bit codes take the int8 route at every segment length
+    # 8- and 16-bit codes (as at seg 32) take the int8 route at every
+    # segment length
+    i8 = _takes_i8(bits, d, q)
     assert (scan.launches, scan.free_seg_launches,
             scan.i8_free_seg_launches) == \
-        (before[0], before[1] + 1, before[2] + (bits == 8))
+        (before[0], before[1] + 1, before[2] + i8)
     want = scan.segment_min_scan_plain(tq, tc, tn, tv, bits=bits,
                                        metric=metric, seg=seg,
                                        dtype=torch.float64)
-    _within_delta(got, want, tq, tn, tv, metric, d, bits=bits)
+    _within_delta(got, want, tq, tn, tv, metric, d, bits=bits,
+                  dq_rel=scan.slice_queries(tq)[2] if i8 else None)
     with pytest.raises(ValueError, match="16, 32, 64, 128"):
         scan.segment_min_scan(tq, tc, tn, tv, bits=bits, metric=metric,
                               seg=48 if n % 48 == 0 else 8)
@@ -184,7 +275,7 @@ def test_surface_kernel_matches_plain(cuda, bits, metric, exact, n, d, q):
     before = (scan.surface_launches, scan.i8_surface_launches)
     got = scan.score_surface(tq, tc, tn, tv, bits=bits, metric=metric,
                              exact=exact)
-    # 8-bit codes take the int8 route
+    # 8-bit codes take the int8 route (K4 at 16 bits: the fp32 kernel)
     assert (scan.surface_launches, scan.i8_surface_launches) == \
         (before[0] + 1, before[1] + (bits == 8))
     assert got.dtype == (torch.float32 if exact else torch.bfloat16)
@@ -200,7 +291,8 @@ def test_surface_kernel_matches_plain(cuda, bits, metric, exact, n, d, q):
         half_ulp = torch.where(a > 0, torch.exp2(torch.floor(torch.log2(
             a.clamp_min(1e-30))) - 8), torch.zeros_like(a))
     _within_delta(got.float(), want, tq, tn, tv, metric, d, half_ulp,
-                  bits=bits)
+                  bits=bits,
+                  dq_rel=scan.slice_queries(tq)[2] if bits == 8 else None)
 
 
 @pytest.mark.parametrize("bits", [4, 16, 64])
@@ -242,7 +334,8 @@ def _half_ulp_bf16(a):
         a.clamp_min(1e-30))) - 8), torch.zeros_like(a))
 
 
-def _tight_on_q_hat(got, tq, tc, tn, tv, metric, d, seg=None, bf16=False):
+def _tight_on_q_hat(got, tq, tc, tn, tv, metric, d, seg=None, bf16=False,
+                    bits=8):
     """The int8 route against an f64 evaluation of the same formula on its
     sliced queries q_hat with the unrounded |q|^2 and sum: within 4 f32
     ulps of the surrogate's terms (bf16: plus half a bf16 ulp), identical
@@ -252,18 +345,18 @@ def _tight_on_q_hat(got, tq, tc, tn, tv, metric, d, seg=None, bf16=False):
     qn2 = tq.square().sum(-1)
     terms = (qn2, tq.sum(-1))
     if seg is None:
-        want = scan.score_surface_plain(qhat, tc, tn, tv, bits=8,
+        want = scan.score_surface_plain(qhat, tc, tn, tv, bits=bits,
                                         metric=metric, dtype=torch.float64,
                                         query_terms=terms)
     else:
-        want = scan.segment_min_scan_plain(qhat, tc, tn, tv, bits=8,
+        want = scan.segment_min_scan_plain(qhat, tc, tn, tv, bits=bits,
                                            metric=metric, seg=seg,
                                            dtype=torch.float64,
                                            query_terms=terms)
     got = got.double()
     assert torch.equal(torch.isinf(got), torch.isinf(want))
-    tol = 4 * 2.0 ** -24 * scan.i8_term_scale(qn2, tn, tv, metric=metric,
-                                              dims=d).double()[:, None]
+    tol = 4 * 2.0 ** -24 * scan.i8_term_scale(
+        qn2, tn, tv, metric=metric, dims=d, bits=bits).double()[:, None]
     fin = torch.isfinite(want)
     err = torch.where(fin, (got - want).abs(), torch.zeros_like(want))
     bound = tol.expand_as(err)
@@ -281,21 +374,29 @@ _I8_TIGHT = [(4096, 384, 130), (1152, 33, 3), (2048, 768, 17),
 
 @pytest.mark.parametrize("metric", ["euclidean", "cosine"])
 @pytest.mark.parametrize("seg", [16, 64, 128])
-@pytest.mark.parametrize("n,d,q", _I8_TIGHT)
-def test_i8_free_seg_kernel_tight_on_q_hat(cuda, seg, metric, n, d, q):
+@pytest.mark.parametrize("bits,n,d,q", [(8,) + x for x in _I8_TIGHT] + [
+    (16, n, d, q) for n in (4224, 262144) for d in (960, 992)
+    for q in _HILO_Q])
+def test_i8_free_seg_kernel_tight_on_q_hat(cuda, seg, metric, bits, n, d, q):
     """K5/K6 on the int8 route, held as K1's is: a wholly invalid 128-row
-    block (a whole segment at every length), zero rows and a zero query."""
-    queries, codes, norms, valid = _corpus(8, n, d, q, seed=n + d + seg,
-                                           dead=(256, 384))
+    block (a whole segment at every length), zero rows and a zero query
+    (at 16 bits rows at the extremes of the high/low split); two launches
+    bit-identical."""
+    queries, codes, norms, valid = _i8_corpus(bits, n, d, q,
+                                              seed=n + d + seg,
+                                              dead=(256, 384))
     tq, tc, tn, tv = (torch.from_numpy(a).to(cuda)
                       for a in (queries, codes, norms, valid))
-    before = scan.i8_free_seg_launches
-    got = scan.segment_min_scan(tq, tc, tn, tv, bits=8, metric=metric,
+    before = (scan.i8_free_seg_launches, scan.i8_hilo_launches)
+    got = scan.segment_min_scan(tq, tc, tn, tv, bits=bits, metric=metric,
                                 seg=seg)
-    assert scan.i8_free_seg_launches == before + 1
+    assert (scan.i8_free_seg_launches, scan.i8_hilo_launches) == \
+        (before[0] + 1, before[1] + (bits == 16))
     assert got.shape == (q, n // seg)
     assert torch.isinf(got[:, 256 // seg:384 // seg]).all()
-    _tight_on_q_hat(got, tq, tc, tn, tv, metric, d, seg=seg)
+    _tight_on_q_hat(got, tq, tc, tn, tv, metric, d, seg=seg, bits=bits)
+    assert torch.equal(got, scan.segment_min_scan(tq, tc, tn, tv, bits=bits,
+                                                  metric=metric, seg=seg))
 
 
 @pytest.mark.parametrize("exact", [True, False])

@@ -2,8 +2,8 @@
 benchmark's GIST-960 cell, on the CPU: search_many at `high` against the
 benchmark's float64 reference (portbench/reference, plain PyTorch) by the
 benchmark's own comparison and limits, the stored rows as the reference's
-codec decodes them, the scan's launch counters on the fp32 route, and the
-rerank counter.
+codec decodes them, the scan's launch counters on the int8 route (16-bit
+codes split into high and low bytes), and the rerank counter.
 
 Two kinds of rows: the benchmark generator's unit vectors ("unit"), over
 which L2 ranks as cosine does (||q - x||^2 = ||q||^2 + 1 - 2 q.x), and
@@ -14,11 +14,14 @@ over which a fault in the rows' norm term changes the answers.
 search_many takes the device path, whose kernels run their plain versions
 on CPU tensors.  The same rows stored at 8 bits must fail the limits: the
 comparison is tight enough to tell the configuration's precision from the
-next one down.  The `cuda` case runs the fp32 tile loop at the cell's
-width and batch against its plain version on the card."""
+next one down.  The `cuda` cases run the fp32 tile loop (which K4 and the
+other widths keep) at the cell's width and batch against its plain version
+on the card, and search_many on a 16-bit collection there, through K1's
+int8 route, against the f64 oracle."""
 
 import json
 import os
+import types
 
 import numpy as np
 import pytest
@@ -129,14 +132,24 @@ def test_get_document_reads_back_the_reference_codec(data, stored):
 
 
 def _fake_kernels(monkeypatch):
-    """The CUDA route's dispatch on CPU tensors: _route by width as on the
+    """The CUDA route's dispatch on CPU tensors: _route's rule as on the
     card, each launch filled by the plain version (the int8 route's dq_rel
-    0)."""
-    monkeypatch.setattr(scan, "_route",
-                        lambda codes, bits: "i8" if bits == 8 else "fp32")
+    0).  Returns the list of the stand-in fp32 kernels' launches (their
+    csrc names), which grows as they run."""
+    real = scan._route
+    fp32_calls = []
+
+    def route(codes, bits, kernel, q):
+        on_cuda = types.SimpleNamespace(device=torch.device("cuda"),
+                                        shape=codes.shape)
+        return real(on_cuda, bits, kernel, q)
+
+    monkeypatch.setattr(scan, "_route", route)
+    monkeypatch.setattr(scan, "hilo_max_dims", lambda device: 992)
 
     def fp32(name, out, last, queries, codes, norms, valid, *, bits,
              metric, tile=None, defines=()):
+        fp32_calls.append(name)
         if name == "segmin":
             out.copy_(scan.segment_min_scan_plain(
                 queries, codes, norms, valid, bits=bits, metric=metric,
@@ -146,32 +159,38 @@ def _fake_kernels(monkeypatch):
                 queries, codes, norms, valid, bits=bits, metric=metric,
                 exact=not last))
 
-    def i8(symbol, out, last, queries, codes, norms, valid, metric):
+    def i8(symbol, out, last, queries, codes, norms, valid, metric, bits):
         assert symbol == "segmin_i8_launch"
         out.copy_(scan.segment_min_scan_plain(
-            queries, codes, norms, valid, bits=8, metric=metric, seg=last))
+            queries, codes, norms, valid, bits=bits, metric=metric,
+            seg=last))
         return torch.zeros(queries.shape[0])
 
     monkeypatch.setattr(scan, "_launch_fp32", fp32)
     monkeypatch.setattr(scan, "_launch_i8", i8)
+    return fp32_calls
 
 
 def test_fp32_launches_count_the_fp32_route_alone(data, stored,
                                                   monkeypatch):
-    """search_many's K1 launches at 16 bits are all fp32 launches (scan.
-    launches rises, i8_launches does not); at 8 bits every one is an int8
-    launch; the answers are the plain route's."""
+    """K1's fp32 launches (scan.launches less i8_launches) are exactly the
+    stand-in fp32 kernel's K1 launches, and at the cell's width (D = 960,
+    within hilo_max_dims) there are none at either width: every K1 launch
+    of search_many is an int8 launch, and at 16 bits i8_hilo_launches
+    counts every one; the answers are the plain route's."""
     _, queries, _ = data
     bits, coll = stored
     want = [[(r.id, r.distance) for r in res.results]
             for res in _search(coll, queries)]
-    _fake_kernels(monkeypatch)
-    before = (scan.launches, scan.i8_launches)
+    fp32_calls = _fake_kernels(monkeypatch)
+    before = (scan.launches, scan.i8_launches, scan.i8_hilo_launches)
     got = [[(r.id, r.distance) for r in res.results]
            for res in _search(coll, queries)]
     n = scan.launches - before[0]
     assert n >= 1
-    assert scan.i8_launches - before[1] == (0 if bits == 16 else n)
+    assert n - (scan.i8_launches - before[1]) == \
+        fp32_calls.count("segmin") == 0
+    assert scan.i8_hilo_launches - before[2] == (n if bits == 16 else 0)
     assert got == want
 
 
@@ -236,7 +255,8 @@ def test_fp32_tile_loop_at_the_cells_width():
     tq, tc, tn, tv = (torch.from_numpy(a).to(dev) for a in (
         np.float32(queries), codes, norms, valid))
     before = (scan.launches, scan.i8_launches)
-    got = scan.segment_min_scan(tq, tc, tn, tv, bits=16, metric="euclidean")
+    got = scan.segmin_fp32(tq, tc, tn, tv, bits=16, metric="euclidean",
+                           seg=scan.DEFAULT_SEG)
     assert (scan.launches, scan.i8_launches) == (before[0] + 1, before[1])
     want = scan.segment_min_scan_plain(tq, tc, tn, tv, bits=16,
                                        metric="euclidean",
@@ -247,3 +267,44 @@ def test_fp32_tile_loop_at_the_cells_width():
     fin = torch.isfinite(want)
     err = (got.double() - want).abs()
     assert (err[fin] <= delta.double()[:, None].expand_as(err)[fin]).all()
+
+
+@pytest.mark.cuda
+def test_search_many_on_the_int8_route_at_the_cells_width(tmp_path):
+    """search_many at `high` on a 16-bit Euclidean collection on the card,
+    over non-negative rows of varying norm at D = 960: K1 runs the int8
+    route's 16-bit form alone (i8_hilo_launches rises with every K1
+    launch), and the ids are the f64 oracle's.  The same scan, held to its
+    flag up the margin ladder, proves every query and returns those ids."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda")
+    n = 8192
+    rows, queries = nonneg_rows(n, DIMS, 961)
+    ref = Reference(rows, bits=16, metric="euclidean")
+    want = ref.topk(queries, K, dev)[1].cpu().tolist()
+    c = tdb.Collection(tdb.CollectionOptions(
+        name=str(tmp_path / "h.dat"), distance_method=tdb.EUCLIDEAN,
+        dimension_count=DIMS, quantization=16), device="cuda")
+    c.add_documents(list(range(n)), rows.numpy(), [b"{}"] * n)
+    assert not c._small()
+    before = (scan.launches, scan.i8_launches, scan.i8_hilo_launches)
+    got = [[r.id for r in res.results] for res in _search(c, queries)]
+    c.close()
+    k1 = scan.launches - before[0]
+    assert k1 >= 1
+    assert scan.i8_launches - before[1] == k1
+    assert scan.i8_hilo_launches - before[2] == k1
+    assert got == want
+    _, codes, norms = tdist.ingest_reprs(rows.double().numpy(), 16)
+    tq, tc, tn = (torch.from_numpy(a).to(dev) for a in (
+        np.float32(queries), codes, norms))
+    tv = torch.ones(n, dtype=torch.bool, device=dev)
+    for margin in (6, 64, 512, n // scan.DEFAULT_SEG):
+        _, ids, ok = scan.fused_scan_topk(tq, tc, tn, tv, bits=16,
+                                          metric="euclidean", k=K,
+                                          tie_margin=margin, with_ties=True)
+        if bool(ok.all()):
+            break
+    assert bool(ok.all())
+    assert ids.cpu().tolist() == want

@@ -9,9 +9,14 @@ a whole tile, the tile never shrinks as Q grows) and the operands the
 wrappers hand the C entry points, read back through a stand-in for the
 entry point: the queries transposed and zero-padded to (Kp, Qp), the
 codes' row bytes and copy width, and the pass-through arguments.  The
-kernels themselves run only on the card (tests/test_torch_cuda.py)."""
+same stand-in reads back the int8 route's operands (csrc/segmin_i8.cu),
+and scan._route's rule is pinned on stand-in CUDA codes: 8-bit codes and
+16-bit K1/K5/K6 up to hilo_max_dims (but small batches on narrow rows)
+take the int8 route, the rest the fp32 kernels.  The kernels themselves
+run only on the card (tests/test_torch_cuda.py)."""
 
 import ctypes
+import types
 
 import numpy as np
 import pytest
@@ -223,3 +228,106 @@ def test_fp32_copy_width_follows_row_alignment(entry):
     assert widths[(16, 40)] == (80, 16)
     assert widths[(32, 384)] == (1536, 16)
     assert widths[(4, 383)] == (192, 16)
+
+
+def _on_cuda(n, d):
+    """Stand-in codes on a CUDA device: what _route reads of them."""
+    return types.SimpleNamespace(device=torch.device("cuda"), shape=(n, d))
+
+
+@pytest.mark.parametrize("bits", [4, 8, 16, 32, 64])
+@pytest.mark.parametrize("d", [33, 384, 511, 512, 960, 992, 993, 1536])
+@pytest.mark.parametrize("q", [1, 16, 17, 1024])
+def test_route_by_width_kernel_and_shape(bits, d, q, monkeypatch):
+    """K1 and K5/K6 ("segmin") take the int8 route at 8 bits and at 16
+    bits up to hilo_max_dims (the kernel library's answer, 992 on the
+    H100) but for batches of at most 16 queries on rows narrower than 512,
+    K4 ("surface") at 8 bits alone; every other width and shape the fp32
+    kernels; CPU tensors the plain versions."""
+    monkeypatch.setattr(scan, "hilo_max_dims", lambda device: 992)
+    codes = _on_cuda(1024, d)
+    want_segmin = "i8" if bits == 8 or (
+        bits == 16 and d <= 992 and (q > 16 or d >= 512)) else "fp32"
+    assert scan._route(codes, bits, "segmin", q) == want_segmin
+    assert scan._route(codes, bits, "surface", q) == \
+        ("i8" if bits == 8 else "fp32")
+    cpu = torch.zeros((4, d), dtype=scan._CODE_DTYPES[bits])
+    assert scan._route(cpu, bits, "segmin", q) == "plain"
+    assert scan._route(cpu, bits, "surface", q) == "plain"
+
+
+class _I8Entry:
+    """Stand-in for csrc/segmin_i8.cu's entry points: records the
+    arguments and copies the slices out while the wrapper holds them."""
+
+    def __init__(self):
+        self.calls = []
+
+    def __call__(self, *args):
+        (slices, qscale, codes, norms, valid, qn2, qsum, out, q, n, d, kp,
+         bits, cosine, scale, offset, last, vec, stream) = args
+        buf = (ctypes.c_int8 * (3 * q * kp)).from_address(slices)
+        self.calls.append(dict(
+            slices=np.ctypeslib.as_array(buf).reshape(3, q, kp).copy(),
+            codes=codes, norms=norms, valid=valid, q=q, n=n, d=d, kp=kp,
+            bits=bits, cosine=cosine, scale=scale, offset=offset, last=last,
+            vec=vec))
+        return 0
+
+
+@pytest.fixture
+def i8_entry(monkeypatch):
+    fake = _I8Entry()
+    monkeypatch.setattr(cuda_build, "entry", lambda *a, **k: fake)
+    monkeypatch.setattr(cuda_build, "launch_stream", lambda device: 0)
+    return fake
+
+
+@pytest.mark.parametrize("bits", [8, 16])
+@pytest.mark.parametrize("seg", [16, 32, 128])
+@pytest.mark.parametrize("n,d,q", [(1024, 33, 3), (512, 960, 17),
+                                   (256, 40, 1)])
+def test_i8_launch_operands(i8_entry, bits, seg, n, d, q):
+    """segmin_i8_launch gets slice_queries' slices (at 16 bits in
+    hilo_order), Kp = D rounded up to 32, the codes' width, their copy
+    width from the row's bytes, the affine constants and the segment; the
+    launch counters rise, i8_hilo_launches at 16 bits alone."""
+    tq, tc, tn, tv = _inputs(bits, n, d, q, seed=bits + d + seg)
+    before = (scan.launches, scan.free_seg_launches, scan.i8_launches,
+              scan.i8_free_seg_launches, scan.i8_hilo_launches)
+    out, dq = scan._segmin_i8(tq, tc, tn, tv, bits=bits, metric="euclidean",
+                              seg=seg)
+    assert out.shape == (q, n // seg)
+    (c,) = i8_entry.calls
+    slices, _, want_dq = scan.slice_queries(tq)
+    assert torch.equal(dq, want_dq)
+    if bits == 16:
+        slices = scan.hilo_order(slices)
+    np.testing.assert_array_equal(c["slices"], slices.numpy())
+    assert (c["q"], c["n"], c["d"], c["bits"], c["last"]) == \
+        (q, n, d, bits, seg)
+    assert c["kp"] == -(-d // 32) * 32
+    assert (c["scale"], c["offset"]) == pytest.approx(
+        scan.qz.affine_constants(bits))
+    assert c["cosine"] == 0
+    row_bytes = d * tc.element_size()
+    assert c["vec"] == next(v for v in (16, 4, 1) if row_bytes % v == 0)
+    k1 = seg == scan.DEFAULT_SEG
+    assert (scan.launches, scan.free_seg_launches, scan.i8_launches,
+            scan.i8_free_seg_launches, scan.i8_hilo_launches) == (
+        before[0] + k1, before[1] + (not k1), before[2] + k1,
+        before[3] + (not k1), before[4] + (bits == 16))
+
+
+def test_hilo_order_is_a_permutation_within_each_32_block():
+    """hilo_order permutes each 32-dim block of K by one fixed permutation
+    (slot p <- dim (p & 16) + 8 bit1(p) + 2 ((p >> 2) & 3) + bit0(p)), so
+    the slices' dot with codes in the same order is unchanged."""
+    kp = 96
+    x = torch.arange(kp, dtype=torch.int8).repeat(3, 2, 1)
+    got = scan.hilo_order(x)[0, 0].tolist()
+    p = np.arange(32)
+    blk = (p & 16) + 8 * ((p >> 1) & 1) + 2 * ((p >> 2) & 3) + (p & 1)
+    assert got == [b * 32 + int(i) for b in range(3) for i in blk]
+    assert sorted(blk.tolist()) == list(range(32))
+    assert torch.equal(scan.hilo_order(x)[2, 1], scan.hilo_order(x)[0, 0])
