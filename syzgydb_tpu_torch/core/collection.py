@@ -785,20 +785,19 @@ class Collection:
         if n_records == 0:
             return [SearchResults([], 0.0) for _ in range(n_real)]
         precision = args.precision or "medium"
-        mask, n_passing = self._filter_mask(args)
-
         use_index = (precision not in ("exact", "high")
                      and self.index.calibrated
                      and n_records >= MIN_INDEX_SIZE)
-        if self._small() and not use_index:
+        host = self._small() and not use_index
+        dev = None if host else self._device_state()
+        mask, n_passing, valid = self._filtered(args, dev, call)
+        if host:
             return [self._host_scan_radius(qvecs[i], float(radii[i]), mask,
                                            n_passing, n_records)
                     for i in range(n_real)]
 
         nq = qvecs.shape[0]
         queries = self._queries(qvecs)
-        dev = self._device_state()
-        valid = self._valid(dev, args, mask)
 
         if use_index:
             budget = min(max(self.options.search_budget,
@@ -827,8 +826,8 @@ class Collection:
                     with spans.span("escalate", call), self._lock:
                         spans.add("escalate_q", nq)
                         dev2 = self._device_state()
-                        d, r, c = ann_dispatch(dev2, self._valid(dev2, args),
-                                               bb)
+                        d, r, c = ann_dispatch(
+                            dev2, self._filtered(args, dev2, call)[2], bb)
                 searched = min(bb, n_passing)
                 # result assembly reads host columns
                 with spans.span("results", call), self._lock:
@@ -871,8 +870,8 @@ class Collection:
                     dev2 = self._device_state()
                     ver = self.columns.version
                     dispatched = self._exact_topk_device(
-                        queries, dev2, self._valid(dev2, args), kk,
-                        tie_margin=tm)
+                        queries, dev2, self._filtered(args, dev2, call)[2],
+                        kk, tie_margin=tm)
             out = []
             # result assembly reads host columns
             with spans.span("results", call), self._lock:
@@ -1033,22 +1032,31 @@ class Collection:
         return torch.from_numpy(self.index.encode_np(
             np.float32(qvecs)).view(np.int32)).to(self._lead())
 
-    def _valid(self, dev: dict, args: SearchArgs,
-               mask: Optional[np.ndarray] = None):
-        """The validity column a search runs with: the placed column when
-        unfiltered, else the filter mask (re-evaluated when not given;
-        query strings hit the mask cache) uploaded to the device — under a
-        mesh, split into each shard's rows on its device."""
+    def _filtered(self, args: SearchArgs, dev: Optional[dict], call: int):
+        """The filter's work for one dispatch or escalation round -> (bool
+        mask over capacity rows, live-passing count, the validity column
+        the device search runs with, None when `dev` is None).
+
+        Unfiltered, the validity column and its placed copy as they are.
+        Filtered, inside the span "filter" of call `call`: the mask
+        (_filter_mask: query strings hit the mask cache) and its upload to
+        the device, under a mesh split into each shard's rows on its
+        device."""
         if args.filter is None and not args.filter_query:
-            return dev["valid"]
-        if mask is None:
-            mask, _ = self._filter_mask(args)
-        if self._mesh is None:
-            return torch.from_numpy(mask).to(self.device)
-        from ..parallel import mesh as mesh_mod
-        return [torch.from_numpy(m).to(d) for m, d in zip(
-            mesh_mod.split_rows(self._mesh, mask, dev["n_local"]),
-            self._mesh.row_devices())]
+            mask, n_passing = self._filter_mask(args)
+            return mask, n_passing, None if dev is None else dev["valid"]
+        with spans.span("filter", call):
+            mask, n_passing = self._filter_mask(args)
+            if dev is None:
+                valid = None
+            elif self._mesh is None:
+                valid = torch.from_numpy(mask).to(self.device)
+            else:
+                from ..parallel import mesh as mesh_mod
+                valid = [torch.from_numpy(m).to(d) for m, d in zip(
+                    mesh_mod.split_rows(self._mesh, mask, dev["n_local"]),
+                    self._mesh.row_devices())]
+        return mask, n_passing, valid
 
     def _knn_many_async(self, qvecs: np.ndarray, args: SearchArgs,
                         n_records: int, n_real: Optional[int] = None, *,
@@ -1062,8 +1070,6 @@ class Collection:
         precision = args.precision or "medium"
         nq = qvecs.shape[0]
         n_real = nq if n_real is None else n_real
-        mask, n_passing = self._filter_mask(args)
-        k = min(args.k, n_passing)
 
         use_index = (precision not in ("exact", "high")
                      and self.index.calibrated
@@ -1075,13 +1081,15 @@ class Collection:
             # exhaustive scan, which also reads every row once
             if nq * budget * ANN_BATCH_CROSSOVER >= n_records:
                 use_index = False
-        if self._small() and not use_index:
+        host = self._small() and not use_index
+        dev = None if host else self._device_state()
+        mask, n_passing, valid = self._filtered(args, dev, call)
+        k = min(args.k, n_passing)
+        if host:
             out = self._host_scan_knn(qvecs, k, mask, n_passing, n_records)
             return lambda: out
 
         queries = self._queries(qvecs)
-        dev = self._device_state()
-        valid = self._valid(dev, args, mask)
 
         if use_index:
             searched = min(budget, n_passing)
@@ -1170,7 +1178,8 @@ class Collection:
                         queries.device))
                 spans.add("escalate_q", q.shape[0])
                 dist, rows, ties, s_used, nseg = self._exact_topk_device(
-                    q, dev, self._valid(dev, args), kk, tie_margin=tm)
+                    q, dev, self._filtered(args, dev, call)[2], kk,
+                    tie_margin=tm)
 
     # A starting-margin failure is "structural" when at least this fraction
     # of the batch's REAL queries tripped the flag; below it the failure is

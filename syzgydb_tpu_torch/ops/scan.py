@@ -84,8 +84,9 @@ GATHER_BUDGET_BYTES = 1 << 30
 KERNEL_SEGS = (16, 32, 64, 128)
 
 # plain-integer counters (reset by callers): each kernel's count of
-# launches by either route, of those by its int8 route, and the rerank's
-# rows
+# launches by either route, of those by its int8 route, the (query, row)
+# pairs the scans score on every route, the plain one included, and the
+# rerank's rows
 launches = 0              # K1: segment minima at DEFAULT_SEG
 i8_launches = 0
 free_seg_launches = 0     # K5/K6: segment minima at seg 16, 64 or 128
@@ -93,6 +94,7 @@ i8_free_seg_launches = 0
 i8_hilo_launches = 0      # segmin_i8_launch calls on 16-bit codes (K1, K5/K6)
 surface_launches = 0      # K4: the full surface
 i8_surface_launches = 0
+pairs_scored = 0          # Q * N summed over K1, K4 and K5/K6 scans
 rerank_rows = 0           # candidate rows decoded and reranked
 
 # the int8 route: query slices (the S csrc/segmin_i8.cu is built for), and
@@ -544,8 +546,10 @@ def _segment_min(queries, codes, norms, valid, *, bits: int, metric: str,
                  seg: int):
     """segment_min_scan -> (segmins, dq_rel): dq_rel is slice_queries'
     (Q,) query-slicing error where the int8 route ran, else None."""
+    global pairs_scored
     _check_scan_args(queries, codes, norms, valid, bits, seg)
     route = _route(codes, bits, "segmin", queries.shape[0])
+    pairs_scored += queries.shape[0] * codes.shape[0]
     if route == "plain":
         return segment_min_scan_plain(queries, codes, norms, valid, bits=bits,
                                       metric=metric, seg=seg), None
@@ -607,8 +611,10 @@ def _score_surface(queries, codes, norms, valid, *, bits: int, metric: str,
                    exact: bool = False):
     """score_surface -> (surface, dq_rel): dq_rel is slice_queries' (Q,)
     query-slicing error where the int8 route ran, else None."""
+    global pairs_scored
     _check_scan_args(queries, codes, norms, valid, bits, 1)
     route = _route(codes, bits, "surface", queries.shape[0])
+    pairs_scored += queries.shape[0] * codes.shape[0]
     if route == "plain":
         return score_surface_plain(queries, codes, norms, valid, bits=bits,
                                    metric=metric, exact=exact), None

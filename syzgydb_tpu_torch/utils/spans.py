@@ -23,6 +23,10 @@ The stages (core/collection.py):
   results   the margin hint and the assembly of the results, lock included
             (precision="exact" kNN: the host f64 rerank and assembly of a
             shortlist)
+  filter    a filtered search's filter work in one dispatch or round: the
+            mask's cache lookup or evaluation (Collection._filter_mask) and
+            its upload as the validity column; it nests inside dispatch or
+            escalate, and an unfiltered search never enters it
 
 Beside the spans' counters:
   escalate_q  the queries that escalate rounds re-dispatched (a margin
@@ -45,13 +49,14 @@ import time
 import torch
 
 # every span name; the profiler's range is "syzgy." + name
-NAMES = ("dispatch", "fetch", "escalate", "results")
+NAMES = ("dispatch", "fetch", "escalate", "results", "filter")
 
 # nanoseconds inside each span, and its count, since import
 dispatch_ns = dispatch_n = 0
 fetch_ns = fetch_n = 0
 escalate_ns = escalate_n = 0
 results_ns = results_n = 0
+filter_ns = filter_n = 0
 escalate_q = 0
 
 _calls = itertools.count(1)

@@ -5,7 +5,8 @@ HOST_SCAN_MAX_ELEMS is patched to 0 so that small collections take the
 device path (as tests/test_torch_collection.py does).  Off, with no
 profiler recording, a search touches no counter and enters no profiler
 range; on, under torch.profiler, each search fires its dispatch, fetch,
-escalate and results spans once per stage, with one call identifier."""
+escalate and results spans once per stage, with one call identifier, and
+a filtered one its filter span in the dispatch and in each round."""
 
 import json
 import sys
@@ -79,6 +80,12 @@ def _radius(qs, radius=0.2):
             for q in qs]
 
 
+def _filtered(args, query="i < 1500"):
+    for a in args:
+        a.filter_query = query
+    return args
+
+
 # each way into the search path -> its results
 CALLS = {
     "search_many": lambda c, qs: c.search_many(_high(qs)),
@@ -86,6 +93,9 @@ CALLS = {
     "radius_many": lambda c, qs: c.radius_many(_radius(qs)),
     "search": lambda c, qs: [c.search(_high(qs[:1])[0])],
     "search_radius": lambda c, qs: [c.search(_radius(qs[:1])[0])],
+    "search_many_filtered": lambda c, qs: c.search_many(_filtered(_high(qs))),
+    "radius_many_filtered": lambda c, qs: c.radius_many(
+        _filtered(_radius(qs))),
 }
 
 
@@ -155,6 +165,9 @@ def test_on_every_entry_point_fires_its_spans(coll, how):
     d = _delta(before)
     assert (d["dispatch_n"], d["results_n"]) == (1, 1)
     assert d["fetch_n"] >= 1 and d["fetch_n"] == d["escalate_n"] + 1
+    # the filter's work, once in the dispatch and once in each round
+    assert d["filter_n"] == (1 + d["escalate_n"] if "filtered" in how
+                             else 0)
 
 
 def _span_events(prof) -> list:
